@@ -1,0 +1,139 @@
+"""Fused attention: the Hopper kernel ``csrc/attention.cu`` and its plain
+PyTorch version.
+
+Counterpart of ``mtn_tpu/ops/pallas_attention.py`` (``flash_attention``,
+gate ``supports``). Both compute, per (batch, head),
+``softmax(where(mask, q·kᵀ·(1/√D), -1e9))·v`` with f32 accumulation, an
+f32 softmax, probabilities rounded to ``v.dtype`` before the PV product
+and the output in ``q.dtype``. The mask is one (B, Lq, Lk) pattern for
+all heads: a 4-D mask takes head 0, like ``_canon_mask``.
+
+:func:`attention` runs the plain version for a CPU tensor and launches
+the kernel for a CUDA tensor; anything it cannot take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from mtn_tpu_torch.ops._build import Kernel, check_cuda
+
+NEG_INF = -1e9
+MAX_SEQ = 2048        # the TPU gate's sequence limit
+MAX_ROWS = 8          # query rows (warps) per block, csrc/attention.cu
+SMEM_LIMIT = 232448   # H100: 227 KB of shared memory per block
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mtn_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, ll,
+                                  i, p]
+    lib.mtn_attention.restype = ctypes.c_int
+
+
+KERNEL = Kernel("attention", _bind)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(Lq: int, Lk: int, D: int, itemsize: int) -> int:
+    """Shared memory of one block (the layout in csrc/attention.cu)."""
+    rows = min(Lq, MAX_ROWS)
+    k_ld = D + 1 if itemsize == 4 else D + 2
+    return (_align16(Lk * k_ld * itemsize) + _align16(Lk * D * itemsize)
+            + _align16(rows * D * 4) + rows * Lk * 4)
+
+
+def supports(q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+             dtype: torch.dtype) -> bool:
+    """Dispatch gate: the TPU gate's shape terms (D ≤ 256, Lq, Lk ≤ 2048,
+    Lq ≥ 16), with the VMEM byte term replaced by this kernel's
+    shared-memory limit."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return False
+    B, H, Lq, D = q_shape
+    Lk = k_shape[2]
+    if D > 256 or Lq > MAX_SEQ or Lk > MAX_SEQ:
+        return False
+    if Lq < 16:
+        return False
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return smem_bytes(Lq, Lk, D, itemsize) <= SMEM_LIMIT
+
+
+def _canon_mask(mask: Optional[torch.Tensor], B: int, Lq: int,
+                Lk: int) -> Optional[torch.Tensor]:
+    """A (B, Lq, Lk) bool view of any (B|1, [1|H,] 1|Lq, Lk) mask; a
+    broadcast axis keeps stride 0 (nothing is materialised)."""
+    if mask is None:
+        return None
+    m = mask[:, 0] if mask.dim() == 4 else mask
+    if m.dim() != 3:
+        raise ValueError(f"attention mask of shape {tuple(mask.shape)}")
+    return m.expand(B, Lq, Lk)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = scores * (1.0 / math.sqrt(D))
+    m = _canon_mask(mask, B, Lq, Lk)
+    if m is not None:
+        scores = torch.where(m[:, None], scores, NEG_INF)
+    mx = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - mx)
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,H,Lq,D), k/v (B,H,Lk,D), mask bool broadcastable to
+    (B,Lq,Lk) or (B,1,Lq,Lk). Returns (B,H,Lq,D) in q.dtype."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: no kernel for device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
+        raise ValueError(f"attention: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"attention: {name} must be contiguous on "
+                             f"{q.device}")
+    if smem_bytes(Lq, Lk, D, q.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"attention: Lk={Lk}, D={D} exceed the kernel's "
+                         "shared memory")
+    m = _canon_mask(mask, B, Lq, Lk)
+    strides = (0, 0, 0)
+    if m is not None:
+        if m.dtype != torch.bool or m.device != q.device:
+            raise TypeError(f"attention: mask must be bool on {q.device}")
+        strides = m.stride()
+    out = torch.empty_like(q)
+    rc = KERNEL.lib().mtn_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        m.data_ptr() if m is not None else None, out.data_ptr(),
+        B, H, Lq, Lk, D, *strides, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_cuda(rc, "attention kernel launch")
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,124 @@
+"""Fused position-wise FFN: the Hopper kernel ``csrc/ffn.cu`` and its
+plain PyTorch version.
+
+Counterpart of ``mtn_tpu/ops/pallas_ffn.py`` (``fused_ffn``, gate
+``supports``): ``h = relu(x·W1 + b1)`` in f32, rounded to ``W2.dtype``;
+``y = h·W2 + b2`` in f32, stored in ``x.dtype``. Weights keep the JAX
+layout, W1 (D, F) and W2 (F, D).
+
+:func:`ffn` runs the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; anything it cannot take raises.
+:func:`fused_ffn` is the dispatch of ``FeedForward``: the kernel inside
+the gate, the plain version outside it, as the JAX package dispatches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mtn_tpu_torch.ops._build import Kernel, check_cuda
+
+ROW_BLOCK = 256       # the TPU gate: one row block of the Pallas grid
+ROW_TILE = 16         # rows per block, csrc/ffn.cu
+F_TILE = 128          # d_ff columns per block, csrc/ffn.cu
+SMEM_LIMIT = 232448   # H100: 227 KB of shared memory per block
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mtn_ffn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mtn_ffn.restype = ctypes.c_int
+
+
+KERNEL = Kernel("ffn", _bind)
+
+
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def smem_bytes(d_model: int, itemsize: int) -> int:
+    """Shared memory of one block (the layout in csrc/ffn.cu)."""
+    return (_align128(ROW_TILE * (d_model + 8) * itemsize)
+            + _align128(ROW_TILE * (F_TILE + 4) * 4)
+            + ROW_TILE * (F_TILE + 8) * itemsize)
+
+
+def supports(n_rows: int, d_model: int, d_ff: int, itemsize: int) -> bool:
+    """Dispatch gate: the TPU gate's row term (one 256-row block), with
+    the VMEM byte term replaced by this kernel's shared-memory limit and
+    tile divisibility."""
+    if n_rows > ROW_BLOCK:
+        return False
+    if d_model % 16 or d_ff % F_TILE:
+        return False
+    return smem_bytes(d_model, itemsize) <= SMEM_LIMIT
+
+
+def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch; x is (N, D)."""
+    h = torch.relu(torch.matmul(x.float(), w1.float()) + b1.float())
+    y = torch.matmul(h.to(w2.dtype).float(), w2.float()) + b2.float()
+    return y.to(x.dtype)
+
+
+def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D)."""
+    if x.device.type == "cpu":
+        return ffn_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn: no kernel for device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"ffn: x must be (N, D), got {tuple(x.shape)}")
+    N, D = x.shape
+    F = w1.shape[-1]
+    if w1.shape != (D, F) or b1.shape != (F,) or w2.shape != (F, D) \
+            or b2.shape != (D,):
+        raise ValueError(f"ffn: shapes x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, b2 {tuple(b2.shape)}")
+    if N == 0 or D % 16 or F % F_TILE:
+        raise ValueError(f"ffn: needs N > 0, D % 16 == 0 and F % {F_TILE} "
+                         f"== 0 (N={N}, D={D}, F={F})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ffn: dtype {x.dtype}")
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
+                    ("b2", b2)):
+        if t.dtype != x.dtype or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"ffn: {name} must be contiguous {x.dtype} on "
+                             f"{x.device}")
+        if t.data_ptr() % 32:
+            raise ValueError(f"ffn: {name} must be 32-byte aligned")
+    if smem_bytes(D, x.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"ffn: D={D} exceeds the kernel's shared memory")
+    n_pad = -(-N // ROW_TILE) * ROW_TILE
+    partial = torch.empty((F // F_TILE, n_pad, D), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty_like(x)
+    rc = KERNEL.lib().mtn_ffn(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), partial.data_ptr(), out.data_ptr(), N, D, F,
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_cuda(rc, "ffn kernel launch")
+    KERNEL.launches += 1
+    return out
+
+
+def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """x (..., D): the kernel where the gate takes the shape, else the
+    plain version (``pallas_ffn.fused_ffn``'s dispatch)."""
+    D = x.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, D)
+    if supports(x2.shape[0], D, w1.shape[1], x.element_size()):
+        out = ffn(x2.contiguous(), w1, b1, w2, b2)
+    else:
+        out = ffn_plain(x2, w1, b1, w2, b2)
+    return out.reshape(*lead, D)

@@ -1,0 +1,117 @@
+"""The weight bridge, init laws and checkpoints of the port, and the rule
+that the port imports no JAX and nothing of mtn_tpu."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mtn_tpu_torch.config import ModelConfig
+from mtn_tpu_torch.weights import (from_flax, init_params, load_checkpoint,
+                                   load_model, param_shapes,
+                                   save_checkpoint, to_flax)
+from tests.fixtures import tiny_model_cfg
+from tests.torch_parity import (both_batches, host_fields, jax_init_params,
+                                one_thread, port_cfg)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    rng = np.random.default_rng(0)
+    jdb, _ = both_batches(host_fields(rng))
+    cfg = tiny_model_cfg(30, (12, 8), diff_embed=True, diff_gen=True,
+                         separate_his_embed=True)
+    return cfg, jax_init_params(cfg, jdb)
+
+
+def test_round_trip_is_bitwise(flax_params):
+    cfg, params = flax_params
+    back = dict(_leaves(to_flax(from_flax(params))))
+    want = dict(_leaves(params))
+    assert back.keys() == want.keys()
+    for k in want:
+        assert back[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+
+
+def test_bf16_round_trip_is_bitwise():
+    import ml_dtypes
+    a = np.random.default_rng(1).standard_normal((4, 3)).astype(
+        ml_dtypes.bfloat16)
+    back = to_flax(from_flax({"m": {"kernel": a}}))["m"]["kernel"]
+    assert back.dtype == a.dtype
+    np.testing.assert_array_equal(back.view(np.uint16), a.view(np.uint16))
+
+
+def test_state_dict_keys_are_flax_paths(flax_params):
+    """Every flax param maps onto one port parameter of the same shape."""
+    cfg, params = flax_params
+    flax_shapes = {k.replace("/", "."): v.shape for k, v in _leaves(params)}
+    assert param_shapes(port_cfg(cfg)) == flax_shapes
+
+
+def test_init_laws():
+    cfg = ModelConfig(vocab_size=50, nb_blocks=1, d_model=16, d_ff=32,
+                      att_h=2, ft_sizes=[12])
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    k = sd["decoder.layer_0.ff.w_1.kernel"]
+    assert k.shape == (16, 32) and k.abs().max() <= (6 / 48) ** 0.5
+    assert sd["decoder.layer_0.ff.w_1.bias"].abs().max() == 0
+    assert torch.all(sd["decoder.norm.scale"] == 1)
+    assert sd["embed_src.lut.embedding"].abs().max() <= (6 / 66) ** 0.5
+    again = init_params(cfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(sd[n], again[n]) for n in sd)
+
+
+def test_checkpoint_and_compute_dtype(tmp_path):
+    cfg = ModelConfig(vocab_size=50, nb_blocks=1, d_model=16, d_ff=32,
+                      att_h=2, ft_sizes=[12], dtype="bfloat16")
+    sd = init_params(cfg, torch.Generator().manual_seed(1))
+    prefix = str(tmp_path / "m")
+    save_checkpoint(prefix, 2, sd, best=True)
+    save_checkpoint(prefix, 3, sd, best=False)
+    got, epoch = load_checkpoint(prefix, "best")
+    assert epoch == 2 and load_checkpoint(prefix, "latest")[1] == 3
+    assert all(torch.equal(got[k], sd[k]) for k in sd)
+    model = load_model(cfg, got, "cpu")
+    # linear/embedding weights cast once to bf16; norms stay f32
+    assert model.decoder.layer_0.ff.w_1.kernel.dtype == torch.bfloat16
+    assert model.embed_src.lut.embedding.dtype == torch.bfloat16
+    assert model.decoder.norm.scale.dtype == torch.float32
+    with pytest.raises(FileNotFoundError):
+        load_checkpoint(str(tmp_path / "none"))
+
+
+def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import mtn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mtn_tpu_torch.__path__, "
+        "'mtn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'flax', "
+        "'orbax') or n.startswith(('jax.', 'flax.', 'orbax.')) "
+        "or n == 'mtn_tpu' or n.startswith('mtn_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('mtn_tpu_torch')]))"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
