@@ -7,9 +7,15 @@
 2. builds the hand-written kernels (mtn_tpu_torch/csrc/*.cu, one nvcc per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes of the beam-decode path and outside its gate,
-   and times kernel, plain version and the one-call PyTorch yardstick
-   (``library_ms``) beside the bound of the card;
+   and bf16, at the shapes of the beam-decode path and outside its gate
+   (the FFN also at 16, 161 and 256 rows, and twice on the same inputs,
+   which must agree bitwise), and times kernel, plain version and the
+   one-call PyTorch yardstick (``library_*``) beside the bound of the
+   card, two ways: ``*ms`` is the host-inclusive time per call (CUDA
+   events around 200 back-to-back calls from Python, so at these sizes
+   mostly the host's cost of a call), ``*device_us`` the device time per
+   call (the CUDA kernels the same 200 calls launched, summed by
+   torch.profiler);
 4. drives the main path — ``python -m mtn_tpu_torch.cli.generate`` beam
    decode (beam 5, maxlen 30, 32 turns per batch, bf16, both kernels on) —
    at the full width of the flagship MTN config (6 blocks, d_model 512,
@@ -19,7 +25,8 @@
 5. checks the flagship model on the card against the same model on the CPU
    (f32, plain versions) on a small batch;
 6. profiles one warm turn batch of the main path (torch.profiler): host
-   wall time, device time by kernel group and the device's idle share.
+   wall time, device time by kernel group, the hand-written kernels'
+   device time per call, and the device's idle share.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it. Its last line is ``{"ok": true, "device": ...}``.
@@ -79,6 +86,36 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, iters: int = 200, warmup: int = 10):
+    """Device time per call of ``fn`` in µs: the durations of the CUDA
+    kernels that ``iters`` calls launched, summed by torch.profiler, over
+    ``iters``; "not measured" if the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(event_device_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters if total > 0 else "not measured"
+
+
+def event_device_us(e) -> float:
+    us = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if us is None else us
+
+
+def timed(row: dict, prefix: str, fn) -> None:
+    """``<prefix>ms`` (host-inclusive) and ``<prefix>device_us`` of fn."""
+    row[prefix + "ms"] = time_ms(fn)
+    row[prefix + "device_us"] = device_us(fn)
+
+
 def bound_ms(nbytes: int, ops: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype]
@@ -132,9 +169,9 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         row = dict(kernel="attention", dtype=dtype_name,
                    shape=[B, H, Lq, Lk, D], mask=kind, max_abs_err=err,
                    tol=TOL[("attention", dtype_name)])
-        row["ms"] = time_ms(lambda: ak.attention(q, k, v, mask))
-        row["plain_ms"] = time_ms(lambda: ak.attention_plain(q, k, v, mask))
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        timed(row, "", lambda: ak.attention(q, k, v, mask))
+        timed(row, "plain_", lambda: ak.attention_plain(q, k, v, mask))
+        timed(row, "library_", lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes(q, k, v, q, mask), 4 * B * H * Lq * Lk * D, dtype_name)
@@ -143,10 +180,12 @@ def attention_cases(torch, ak, dtype_name: str, gen):
 
 
 def ffn_cases(torch, fk, dtype_name: str, gen):
-    """FFN at the decode step's 160 rows, and 300 and 1024 rows. Weights
-    rotate over copies larger than L2 together, so every launch reads them
-    from device memory, as a decode step does (each layer's FFN weights
-    are evicted by the other layers')."""
+    """FFN at the decode step's 160 rows; at 16, 161 (a ragged row tile)
+    and 256 rows (the gate's edge); and at 300 and 1024 rows, outside the
+    gate. Each case runs twice on the same inputs and must agree bitwise.
+    Weights rotate over copies larger than L2 together, so every timed
+    launch reads them from device memory, as a decode step does (each
+    layer's FFN weights are evicted by the other layers')."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     D, F = 512, 2048
@@ -160,15 +199,19 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
             torch.randn(F, D, generator=gen) / F ** 0.5,
             torch.randn(D, generator=gen) * 0.1)))
     rows = []
-    for N in (160, 300, 1024):
+    for N in (160, 16, 161, 256, 300, 1024):
         x = torch.randn(N, D, generator=gen).to(dev, dt)
         w1, b1, w2, b2 = weights[0]
         got = fk.ffn(x, w1, b1, w2, b2)
+        again = fk.ffn(x, w1, b1, w2, b2)
         want = fk.ffn_plain(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        if math.isnan(err):
+        if math.isnan(err) or torch.isnan(got.float()).any():
             raise AssertionError(f"ffn {dtype_name} N={N}: NaN")
+        if not torch.equal(got, again):
+            raise AssertionError(f"ffn {dtype_name} N={N}: two calls on the "
+                                 "same inputs differ")
         turn = [0]
 
         def rotating(fn):
@@ -178,9 +221,10 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
             return call
         row = dict(kernel="ffn", dtype=dtype_name, shape=[N, D, F],
                    max_abs_err=err, tol=TOL[("ffn", dtype_name)])
-        row["ms"] = time_ms(rotating(fk.ffn))
-        row["plain_ms"] = time_ms(rotating(fk.ffn_plain))
+        timed(row, "", rotating(fk.ffn))
+        timed(row, "plain_", rotating(fk.ffn_plain))
         row["library_ms"] = None  # no single PyTorch call fuses the MLP
+        row["library_device_us"] = None
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes(x, w1, b1, w2, b2, x), 4 * N * D * F, dtype_name)
         rows.append(row)
@@ -293,11 +337,14 @@ def kernel_group(name: str) -> str:
 def profile_decode(torch, prefix, test_set, fea_path):
     """One warm beam-decoded turn batch of the main path (bf16, both
     kernels) under torch.profiler: host wall time, device busy time by
-    kernel group, and the device's idle share. Returns a dict."""
+    kernel group, the hand-written kernels' device time per wrapper call,
+    and the device's idle share. Returns a dict."""
     from mtn_tpu_torch.config import DecodeConfig, config_from_dict
     from mtn_tpu_torch.data.batching import make_batch, make_batch_indices
     from mtn_tpu_torch.data.dataset import load
     from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.ops import attention_kernel as ak
+    from mtn_tpu_torch.ops import ffn_kernel as fk
     from mtn_tpu_torch.train.batch import device_batch
     from mtn_tpu_torch.weights import load_checkpoint, load_conf, load_model
     from torch.profiler import ProfilerActivity, profile
@@ -323,17 +370,18 @@ def profile_decode(torch, prefix, test_set, fea_path):
     raw = dec.beam_batch_raw(db)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         dec.beam_batch_raw(db)
         torch.cuda.synchronize()
+    calls = {"attention (csrc)": ak.KERNEL.launches,
+             "ffn (csrc)": fk.KERNEL.launches}
     groups, top, launches = {}, [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        us = event_device_us(e)
         g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         top.append((us / 1e3, e.count, e.key[:60]))
@@ -345,6 +393,10 @@ def profile_decode(torch, prefix, test_set, fea_path):
             "idle_share": (1 - busy / (wall * 1e3)) if measured
             else "not measured",
             "device_ms_by_group": groups, "device_launches": launches,
+            "kernel_calls": calls,
+            "device_us_per_call": {
+                g: groups.get(g, 0.0) * 1e3 / n if measured and n
+                else "not measured" for g, n in calls.items()},
             "top_kernels": sorted(top, reverse=True)[:8]}
 
 
@@ -456,7 +508,9 @@ def main() -> int:
                     launches=launches[name], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"], device_us=r["device_us"],
+                    plain_device_us=r["plain_device_us"],
+                    library_device_us=r["library_device_us"])
                for name, route, src, rep, r in heads]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,14 +21,18 @@ import torch
 from mtn_tpu_torch.ops._build import Kernel, check_cuda
 
 ROW_BLOCK = 256       # the TPU gate: one row block of the Pallas grid
-ROW_TILE = 16         # rows per block, csrc/ffn.cu
-F_TILE = 128          # d_ff columns per block, csrc/ffn.cu
+ROW_TILE = {2: 32, 4: 16}  # rows per block by itemsize, csrc/ffn.cu
+F_TILE = 256          # d_ff columns per slice, csrc/ffn.cu
+PAD = 8               # shared row padding, elements
+STAGES = 3            # bf16 weight ring: stages of 64 W1 rows or 32 W2 rows
+STAGE_ELEMS = max(64 * (F_TILE + PAD), 32 * (512 + PAD))
+BARRIERS = 2 * STAGES * 8  # bf16: the ring's full and empty mbarriers
 SMEM_LIMIT = 232448   # H100: 227 KB of shared memory per block
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mtn_ffn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mtn_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.mtn_ffn.restype = ctypes.c_int
 
 
@@ -40,10 +44,17 @@ def _align128(n: int) -> int:
 
 
 def smem_bytes(d_model: int, itemsize: int) -> int:
-    """Shared memory of one block (the layout in csrc/ffn.cu)."""
-    return (_align128(ROW_TILE * (d_model + 8) * itemsize)
-            + _align128(ROW_TILE * (F_TILE + 4) * 4)
-            + ROW_TILE * (F_TILE + 8) * itemsize)
+    """Shared memory of one block (``layout`` in csrc/ffn.cu, and the
+    ring's mbarriers)."""
+    rows = ROW_TILE[itemsize]
+    partial = rows * (d_model + PAD) * 4
+    if itemsize == 2:
+        return (_align128(rows * (d_model + PAD) * 2)
+                + _align128(rows * (F_TILE + PAD) * 2)
+                + _align128(partial) + _align128(d_model * 2)
+                + STAGES * STAGE_ELEMS * 2 + BARRIERS)
+    return (_align128(rows * d_model * 4)
+            + _align128(rows * F_TILE * 4) + partial)
 
 
 def supports(n_rows: int, d_model: int, d_ff: int, itemsize: int) -> bool:
@@ -70,8 +81,6 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D)."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"ffn: no kernel for device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"ffn: x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape
@@ -86,6 +95,8 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"== 0 (N={N}, D={D}, F={F})")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ffn: dtype {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn: no kernel for device {x.device}")
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
                     ("b2", b2)):
         if t.dtype != x.dtype or t.device != x.device \
@@ -96,13 +107,10 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             raise ValueError(f"ffn: {name} must be 32-byte aligned")
     if smem_bytes(D, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"ffn: D={D} exceeds the kernel's shared memory")
-    n_pad = -(-N // ROW_TILE) * ROW_TILE
-    partial = torch.empty((F // F_TILE, n_pad, D), dtype=torch.float32,
-                          device=x.device)
     out = torch.empty_like(x)
     rc = KERNEL.lib().mtn_ffn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), partial.data_ptr(), out.data_ptr(), N, D, F,
+        b2.data_ptr(), out.data_ptr(), N, D, F,
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     check_cuda(rc, "ffn kernel launch")
