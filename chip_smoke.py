@@ -8,14 +8,17 @@
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the shapes of the beam-decode path and outside its gate
-   (the FFN also at 16, 161 and 256 rows, and twice on the same inputs,
-   which must agree bitwise), and times kernel, plain version and the
-   one-call PyTorch yardstick (``library_*``) beside the bound of the
-   card, two ways: ``*ms`` is the host-inclusive time per call (CUDA
-   events around 200 back-to-back calls from Python, so at these sizes
-   mostly the host's cost of a call), ``*device_us`` the device time per
-   call (the CUDA kernels the same 200 calls launched, summed by
-   torch.profiler);
+   (the FFN also at 16, 161 and 256 rows; bf16 attention also at the edges
+   of its design: Lq 20, Lk 61, Lk 130 and 2048 (two passes over key
+   chunks), D 33, 40, 128 and 256, fully masked rows at Lk 61, 130 and
+   2048, a per-query mask with two passes),
+   each case twice on the same inputs, which must agree bitwise, and times
+   kernel, plain version and the one-call PyTorch yardstick
+   (``library_*``) beside the bound of the card, two ways: ``*ms`` is the
+   host-inclusive time per call (CUDA events around 200 back-to-back calls
+   from Python, so at these sizes mostly the host's cost of a call),
+   ``*device_us`` the device time per call (the CUDA kernels the same 200
+   calls launched, summed by torch.profiler);
 4. drives the main path — ``python -m mtn_tpu_torch.cli.generate`` beam
    decode (beam 5, maxlen 30, 32 turns per batch, bf16, both kernels on) —
    at the full width of the flagship MTN config (6 blocks, d_model 512,
@@ -129,7 +132,11 @@ def nbytes(*ts) -> int:
 
 # -- kernel phases ----------------------------------------------------------
 def attention_cases(torch, ak, dtype_name: str, gen):
-    """Each case: max abs error against the plain version, and times."""
+    """Each case: max abs error against the plain version, and times.
+    Every case runs twice on the same inputs and must agree bitwise; bf16
+    adds the edges of its design (ragged Lq, Lk past a key chunk, two
+    passes, fully masked rows, D not a multiple of 16 or of 8, D up to
+    256)."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -142,6 +149,22 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((4, 8, 32, 64, 64), "full"),    # a (B, 1, Lq, Lk) mask
         ((4, 8, 32, 64, 64), "none"),
     ]
+    if dtype_name == "bfloat16":
+        cases += [
+            ((4, 8, 20, 64, 64), "keys"),    # Lq not a multiple of 16
+            ((4, 8, 32, 61, 64), "keys"),    # keys past Lk in the chunk
+            ((4, 8, 32, 61, 64), "empty"),   # ... and a fully masked row
+            ((4, 8, 16, 130, 64), "keys"),   # two passes, 3 chunks
+            ((4, 8, 16, 130, 64), "empty"),  # ... and a fully masked row
+            ((4, 8, 32, 130, 64), "full"),   # ... a (B, 1, Lq, Lk) mask
+            ((2, 8, 16, 2048, 64), "keys"),  # two passes, the gate's Lk
+            ((2, 8, 16, 2048, 64), "empty"),
+            ((4, 8, 32, 64, 40), "keys"),    # D padded to 48
+            ((4, 8, 32, 64, 33), "keys"),    # D % 8 != 0: element copies
+            ((4, 8, 32, 64, 128), "keys"),   # one 128-column slice
+            ((4, 8, 32, 130, 256), "keys"),  # two slices, two passes
+            ((4, 8, 64, 64, 256), "full"),   # two slices, one pass
+        ]
     for (B, H, Lq, Lk, D), kind in cases:
         q = torch.randn(B, H, Lq, D, generator=gen).to(dev, dt)
         k = torch.randn(B, H, Lk, D, generator=gen).to(dev, dt)
@@ -157,12 +180,16 @@ def attention_cases(torch, ak, dtype_name: str, gen):
                 mask[0] = False
             mask = mask.to(dev)
         got = ak.attention(q, k, v, mask)
+        again = ak.attention(q, k, v, mask)
         want = ak.attention_plain(q, k, v, mask)
         torch.cuda.synchronize()
+        what = f"attention {dtype_name} {(B, H, Lq, Lk, D)} {kind}"
         err = (got.float() - want.float()).abs().max().item()
         if math.isnan(err) or torch.isnan(got.float()).any():
-            raise AssertionError(f"attention {dtype_name} {(B, H, Lq, Lk, D)} "
-                                 f"{kind}: NaN")
+            raise AssertionError(f"{what}: NaN")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 "differ")
         if kind == "empty":  # uniform average of v for the masked batch
             avg = v[0].float().mean(dim=1, keepdim=True).expand(H, Lq, D)
             err = max(err, (got[0].float() - avg).abs().max().item())
@@ -323,7 +350,7 @@ def reference_check(torch, prefix, test_set, fea_path):
 
 
 def kernel_group(name: str) -> str:
-    if "attention_kernel" in name:
+    if "mtn_attention_" in name:
         return "attention (csrc)"
     if "ffn_" in name:
         return "ffn (csrc)"
@@ -429,7 +456,8 @@ def main() -> int:
     print(f"[build] {time.time() - t0:.1f}s")
     for log in logs:
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                        "spill", "error")):
                 print("[build] " + line.strip())
 
     gen = torch.Generator().manual_seed(0)

@@ -24,7 +24,11 @@ from mtn_tpu_torch.ops._build import Kernel, check_cuda
 
 NEG_INF = -1e9
 MAX_SEQ = 2048        # the TPU gate's sequence limit
-MAX_ROWS = 8          # query rows (warps) per block, csrc/attention.cu
+VMEM_LIMIT = 8 * 1024 * 1024  # the TPU gate's VMEM term
+MAX_ROWS = 8          # f32: query rows (warps) per block, csrc/attention.cu
+KEY_CHUNK = 64        # bf16: keys of a ring stage
+MAX_TILES = 4         # bf16: 16-row query tiles (warps) per block
+PAD = 8               # bf16: shared row padding, elements
 SMEM_LIMIT = 232448   # H100: 227 KB of shared memory per block
 
 
@@ -43,18 +47,30 @@ def _align16(n: int) -> int:
 
 
 def smem_bytes(Lq: int, Lk: int, D: int, itemsize: int) -> int:
-    """Shared memory of one block (the layout in csrc/attention.cu)."""
+    """Shared memory of one block (the layouts in csrc/attention.cu).
+
+    bf16 (``bf16_layout``): the Q tiles and one K/V stage of
+    ``KEY_CHUNK`` keys, rows of D rounded up to 16 plus 16 bytes; past one
+    chunk, two stages (a double-buffered ring). It does not depend on Lk
+    past one chunk. f32: the head's whole K and V, the query rows and
+    their score rows."""
+    if itemsize == 2:
+        ld = _align16(D) + PAD
+        tiles = min(MAX_TILES, -(-Lq // 16))
+        stages = 2 if Lk > KEY_CHUNK else 1
+        return 16 * tiles * ld * 2 + stages * 2 * KEY_CHUNK * ld * 2
     rows = min(Lq, MAX_ROWS)
-    k_ld = D + 1 if itemsize == 4 else D + 2
-    return (_align16(Lk * k_ld * itemsize) + _align16(Lk * D * itemsize)
+    return (_align16(Lk * (D + 1) * 4) + _align16(Lk * D * 4)
             + _align16(rows * D * 4) + rows * Lk * 4)
 
 
 def supports(q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
              dtype: torch.dtype) -> bool:
-    """Dispatch gate: the TPU gate's shape terms (D ≤ 256, Lq, Lk ≤ 2048,
-    Lq ≥ 16), with the VMEM byte term replaced by this kernel's
-    shared-memory limit."""
+    """Dispatch gate. The TPU gate's shape terms (D ≤ 256, Lq, Lk ≤ 2048,
+    Lq ≥ 16); then for bf16 its VMEM term as written, so the kernel runs
+    on exactly the calls where JAX ran Pallas (every such shape fits the
+    block's shared memory), and for f32 this kernel's shared-memory
+    limit in place of the VMEM term."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
     B, H, Lq, D = q_shape
@@ -63,6 +79,8 @@ def supports(q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
         return False
     if Lq < 16:
         return False
+    if dtype == torch.bfloat16:
+        return 4 * (Lq * Lk) + 4 * D * (2 * Lq + 2 * Lk) < VMEM_LIMIT
     itemsize = torch.empty((), dtype=dtype).element_size()
     return smem_bytes(Lq, Lk, D, itemsize) <= SMEM_LIMIT
 
@@ -102,8 +120,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,Lq,Lk) or (B,1,Lq,Lk). Returns (B,H,Lq,D) in q.dtype."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -119,9 +135,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"attention: {name} must be contiguous on "
                              f"{q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: no kernel for device {q.device}")
     if smem_bytes(Lq, Lk, D, q.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"attention: Lk={Lk}, D={D} exceed the kernel's "
-                         "shared memory")
+        raise ValueError(f"attention: Lq={Lq}, Lk={Lk}, D={D} exceed the "
+                         "kernel's shared memory")
     m = _canon_mask(mask, B, Lq, Lk)
     strides = (0, 0, 0)
     if m is not None:
