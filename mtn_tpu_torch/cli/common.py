@@ -1,5 +1,6 @@
 """Shared CLI plumbing: the flag surface of ``mtn_tpu/cli/common.py`` plus
-``--device``, and the refusal of flags whose paths are not ported yet."""
+``--device``, and the refusal of flags whose paths are not ported yet
+(each names its ROADMAP item)."""
 
 from __future__ import annotations
 
@@ -80,6 +81,12 @@ def check_unported(args: argparse.Namespace) -> None:
         refused.append("--profile-dir (ROADMAP: tools)")
     if args.nan_checks:
         refused.append("--nan-checks (ROADMAP: tools)")
+    if getattr(args, "batched_ae", 0):
+        refused.append("--batched-ae 1 (ROADMAP: batched_ae)")
+    if getattr(args, "feature_cache", ""):
+        refused.append("--feature-cache (ROADMAP: feature cache)")
+    if getattr(args, "async_save", 0):
+        refused.append("--async-save 1 (ROADMAP: tools)")
     if refused:
         raise NotImplementedError("not ported to mtn_tpu_torch yet: "
                                   + ", ".join(refused))

@@ -5,8 +5,8 @@ so a ``<prefix>.conf.json`` written by ``mtn_tpu`` training loads here
 unchanged and one config drives both packages. ``use_pallas_attention``
 and ``use_pallas_ffn`` keep their names: in this package they select the
 hand-written Hopper kernels (``mtn_tpu_torch/csrc``). Fields whose paths
-the port does not run yet (``batched_ae``, ``remat``, int8 feature
-transfer, sampling) are kept for the schema and refused where used.
+the port does not run yet (``batched_ae``, int8 feature transfer,
+sampling) are kept for the schema and refused where used.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class ModelConfig:
     # decode-time self-attention q/k/v as one (D, 3D) product
     fused_decode_qkv: bool = False
     batched_ae: bool = False      # not ported yet (ROADMAP)
-    remat: bool = False           # not ported yet (ROADMAP)
+    remat: bool = False           # recompute decoder layers in backward
 
     @property
     def n_streams(self) -> int:
@@ -80,7 +80,7 @@ class DataConfig:
 
 @dataclass
 class TrainConfig:
-    """Optimization (kept for the schema; training is not ported yet)."""
+    """Optimization."""
 
     num_epochs: int = 15
     batch_size: int = 32

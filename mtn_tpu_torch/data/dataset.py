@@ -52,6 +52,9 @@ class DialogueDataset:
     def __len__(self) -> int:
         return len(self.turns)
 
+    def feature_dims(self) -> List[int]:
+        return self.features.feature_dims() if self.features else []
+
 
 def load(fea_types: Optional[Sequence[str]], fea_path: str, dataset_file: str,
          vocab: Dict[str, int], include_caption: str = "none",

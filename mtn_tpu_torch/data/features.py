@@ -69,6 +69,11 @@ class FeatureRegistry:
     def path(self, stream_idx: int, vid: str) -> str:
         return self.streams[stream_idx][vid][0]
 
+    def feature_dims(self) -> List[int]:
+        """Last-axis dim per stream, from the first video's header."""
+        return [get_npy_shape(next(iter(stream.values()))[0])[-1]
+                for stream in self.streams]
+
 
 def load_features(registry: FeatureRegistry, vids: Sequence[str],
                   max_frames: Sequence[int], skip: Sequence[int]

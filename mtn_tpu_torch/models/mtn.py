@@ -13,7 +13,14 @@ Same architecture, parameter names and config branches as the JAX model:
   projection once per turn batch; ``decode_step`` advances one token with
   a self-attention KV cache, updated in place.
 
-``batched_ae`` and ``remat`` are not ported yet and raise.
+Training mode follows ``self.training`` (JAX's ``deterministic=False``):
+dropout after each positional encoding, on each sublayer's output, inside
+the FFNs, and on the attention probabilities (``attn_dropout``). With
+``remat`` each decoder layer's training forward runs under
+``torch.utils.checkpoint`` (``nn.remat(DecoderLayer)``): its activations
+are recomputed in the backward, with the RNG state of the forward, so
+dropout draws the same masks. ``batched_ae`` is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mtn_tpu_torch.config import ModelConfig
 from mtn_tpu_torch.models.layers import (FeedForward, Generator,
@@ -270,8 +278,13 @@ class Decoder(nn.Module):
             for _ in range(cfg.n_streams)])
 
     def forward(self, x, enc: Encoded, masks: SourceMasks, tgt_mask, ae_fts):
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x, ae_fts = layer(x, enc, masks, tgt_mask, ae_fts)
+            if remat:
+                x, ae_fts = checkpoint(layer, x, enc, masks, tgt_mask,
+                                       ae_fts, use_reentrant=False)
+            else:
+                x, ae_fts = layer(x, enc, masks, tgt_mask, ae_fts)
         out_ae = tuple(self.ae_norm[i](ft) for i, ft in enumerate(ae_fts))
         return self.norm(x), out_ae
 
@@ -309,9 +322,6 @@ class MTN(nn.Module):
         if cfg.batched_ae:
             raise NotImplementedError(
                 "batched_ae is not ported yet (ROADMAP: 'batched_ae')")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP: training slice)")
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
         pt = torch_dtype(cfg.param_dtype)

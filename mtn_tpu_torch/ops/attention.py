@@ -7,7 +7,9 @@ softmax, optional dropout on the probabilities, probabilities cast to
 ``v.dtype`` before the PV product, PV accumulated in f32, output in
 ``q.dtype``. :func:`multi_head_attention` sends a call to the Hopper
 kernel (:mod:`mtn_tpu_torch.ops.attention_kernel`) when the kernel is
-selected, dropout is off and the kernel's gate takes the shapes.
+selected, dropout is off and the kernel's gate takes the shapes, as
+``mtn_tpu``'s dispatch does; in a training forward the kernel runs
+behind its autograd wrapper.
 """
 
 from __future__ import annotations

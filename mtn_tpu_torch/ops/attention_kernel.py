@@ -9,7 +9,11 @@ and the output in ``q.dtype``. The mask is one (B, Lq, Lk) pattern for
 all heads: a 4-D mask takes head 0, like ``_canon_mask``.
 
 :func:`attention` runs the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor; anything it cannot take raises.
+the kernel for a CUDA tensor; anything it cannot take raises. Where an
+input requires grad, the launch goes through :class:`AttentionFunction`,
+whose backward is the plain math recomputed from the saved inputs, as
+``_flash_bwd`` recomputes ``sdpa_xla`` through ``jax.vjp`` (there is no
+backward kernel, in either package).
 """
 
 from __future__ import annotations
@@ -120,6 +124,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,Lq,Lk) or (B,1,Lq,Lk). Returns (B,H,Lq,D) in q.dtype."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, mask)
+    return launch(q, k, v, mask)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version
+    (``sdpa``) recomputed on the saved inputs. The mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return launch(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from mtn_tpu_torch.ops.attention import sdpa
+        q, k, v, mask = ctx.saved_tensors
+        m = _canon_mask(mask, q.shape[0], q.shape[2], k.shape[2])
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip((q, k, v), ctx.needs_input_grad[:3])]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = sdpa(*inputs, None if m is None else m[:, None])
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; raises on anything it
+    cannot take."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")

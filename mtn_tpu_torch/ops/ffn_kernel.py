@@ -7,7 +7,10 @@ Counterpart of ``mtn_tpu/ops/pallas_ffn.py`` (``fused_ffn``, gate
 layout, W1 (D, F) and W2 (F, D).
 
 :func:`ffn` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; anything it cannot take raises.
+kernel for a CUDA tensor; anything it cannot take raises. Where an input
+requires grad, the launch goes through :class:`FFNFunction`, whose
+backward is the plain math recomputed from the saved inputs, as
+``_fused_bwd`` recomputes ``_xla_ffn`` through ``jax.vjp``.
 :func:`fused_ffn` is the dispatch of ``FeedForward``: the kernel inside
 the gate, the plain version outside it, as the JAX package dispatches.
 """
@@ -81,6 +84,37 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D)."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, w1, b1, w2, b2)):
+        return FFNFunction.apply(x, w1, b1, w2, b2)
+    return launch(x, w1, b1, w2, b2)
+
+
+class FFNFunction(torch.autograd.Function):
+    """The kernel forward; the backward differentiates ``ffn_plain``
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ffn_plain(*inputs)
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; raises on anything it
+    cannot take."""
     if x.dim() != 2:
         raise ValueError(f"ffn: x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape

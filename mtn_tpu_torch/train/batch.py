@@ -3,7 +3,9 @@
 A :class:`DeviceBatch` holds the tokens, features and frame counts of one
 host batch as tensors on one device; :func:`batch_masks` derives every
 mask from them. Without a separate caption the batch carries a
-single-<blank> caption column, whose pad mask is all False.
+single-<blank> caption column, whose pad mask is all False. Gradient
+accumulation groups equal-shape batches (:func:`accumulated`) and fills a
+ragged last group with :func:`blank_like` batches.
 """
 
 from __future__ import annotations
@@ -52,6 +54,36 @@ def device_batch(hb: HostBatch, device: Union[str, torch.device],
         fts_len=tuple(tok(l) for l in hb.fts_len),
         valid=torch.from_numpy(np.asarray(hb.valid, bool)).to(device),
     )
+
+
+def blank_like(db: DeviceBatch, pad: int = 1) -> DeviceBatch:
+    """An all-padding microbatch shaped like ``db``: no real token, no
+    frame, every row invalid. It adds zero loss and zero gradients, and
+    fills the ragged tail of an accumulation group."""
+    return DeviceBatch(
+        query=torch.full_like(db.query, pad),
+        his=torch.full_like(db.his, pad),
+        cap=torch.full_like(db.cap, pad),
+        answer_in=torch.full_like(db.answer_in, pad),
+        answer_out=torch.full_like(db.answer_out, pad),
+        fts=tuple(torch.zeros_like(f) for f in db.fts),
+        fts_len=tuple(torch.zeros_like(l) for l in db.fts_len),
+        valid=torch.zeros_like(db.valid))
+
+
+def accumulated(batches, accum_steps: int, pad: int = 1):
+    """Group a stream of device batches into lists of ``accum_steps``
+    microbatches, the input of ``Trainer.train_step_accum``; the last,
+    ragged group is completed with ``blank_like(pad=pad)`` fillers."""
+    group = []
+    for db in batches:
+        group.append(db)
+        if len(group) == accum_steps:
+            yield group
+            group = []
+    if group:
+        group += [blank_like(group[0], pad=pad)] * (accum_steps - len(group))
+        yield group
 
 
 def batch_masks(b: DeviceBatch, pad: int

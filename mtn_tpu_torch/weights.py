@@ -14,7 +14,10 @@ Checkpoint format (written by :func:`save_checkpoint`, read by
 - ``<prefix>_torch/meta.json``: ``{"epochs": [...], "best_epoch": e}``.
 
 A JAX checkpoint reaches the port by dumping its params to a ``.npz``
-(a JAX-side step) and :func:`from_flax` on the loaded tree.
+(a JAX-side step) and :func:`from_flax` on the loaded tree; its optax
+Adam state, dumped the same way, by :func:`opt_state_from_optax`. The
+training checkpoints (optimiser state, the mid-epoch slot) are
+``mtn_tpu_torch.utils.checkpoint``'s, beside the same params files.
 """
 
 from __future__ import annotations
@@ -69,6 +72,43 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = _to_numpy(t)
     return tree
+
+
+def optax_adam_fields(opt_state) -> Tuple[Any, Any, Any]:
+    """``(mu, nu, count)`` of the Adam state inside an optax state given
+    as numpy trees: ``optax.adam``'s ``(ScaleByAdamState,
+    ScaleByScheduleState)``, or under ``--grad-clip`` the chain
+    ``(EmptyState, (ScaleByAdamState, ScaleByScheduleState))``. Found by
+    its fields, so nothing of optax is imported."""
+    if all(hasattr(opt_state, f) for f in ("mu", "nu", "count")):
+        return opt_state.mu, opt_state.nu, opt_state.count
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            try:
+                return optax_adam_fields(sub)
+            except ValueError:
+                pass
+    raise ValueError("no Adam state (mu, nu, count) in the optax state")
+
+
+def opt_state_from_optax(mu: Mapping[str, Any], nu: Mapping[str, Any],
+                         count) -> Dict[str, Any]:
+    """optax's Adam moments (flax-shaped numpy trees) and update count ->
+    the port's optimiser state by parameter name (``{"count": int, "mu":
+    {name: f32 tensor}, "nu": {...}}``), which ``Trainer.state_from``
+    takes. With :func:`from_flax` on the params, a JAX ``TrainState``
+    resumes in the port."""
+    f32 = lambda sd: {k: v.float() for k, v in sd.items()}
+    return {"count": int(np.asarray(count)), "mu": f32(from_flax(mu)),
+            "nu": f32(from_flax(nu))}
+
+
+def opt_state_to_optax(opt_state: Mapping[str, Any]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any], np.ndarray]:
+    """The inverse of :func:`opt_state_from_optax`: (mu, nu, count) as
+    flax-shaped numpy trees and an int32 count."""
+    return (to_flax(opt_state["mu"]), to_flax(opt_state["nu"]),
+            np.asarray(opt_state["count"], np.int32))
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

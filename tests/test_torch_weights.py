@@ -108,10 +108,16 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
         "'orbax') or n.startswith(('jax.', 'flax.', 'orbax.')) "
         "or n == 'mtn_tpu' or n.startswith('mtn_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('mtn_tpu_torch')]))"
+        "print(' '.join(n for n in sys.modules "
+        "if n.startswith('mtn_tpu_torch')))"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 15
+    for name in ("cli.train", "train.trainer", "train.loss",
+                 "train.schedule", "data.pipeline", "utils.checkpoint",
+                 "utils.logging"):
+        assert f"mtn_tpu_torch.{name}" in loaded, name

@@ -116,3 +116,19 @@ def interpret_pallas(monkeypatch):
     monkeypatch.setattr(pa, "_INTERPRET", True)
     monkeypatch.setattr(pf, "_INTERPRET", True)
     monkeypatch.setattr(attn_mod.jax, "default_backend", lambda: "tpu")
+
+
+def train_argv(c, prefix, *extra):
+    """Flags of ``mtn_tpu_torch.cli.train`` on the tiny corpus ``c`` (a
+    one-block width-16 model on the CPU), then ``extra``."""
+    return ["--device", "cpu", "--dtype", "float32",
+            "--fea-type", *c.fea_types, "--train-path", c.fea_path,
+            "--train-set", c.train_set, "--valid-path", c.fea_path,
+            "--valid-set", c.valid_set, "--include-caption",
+            "caption,summary", "--separate-caption", "1", "--batch-size",
+            "4", "--max-length", "64", "--model", prefix, "--nb-blocks",
+            "1", "--d-model", "16", "--d-ff", "32", "--att-h", "2",
+            "--warmup-steps", "20", "--diff-encoder", "1",
+            "--auto-encoder-ft", "query", "--vocab-cutoff", "0",
+            "--length-bucket", "8", "--feature-bucket", "4",
+            "--report-interval", "1", *extra]
