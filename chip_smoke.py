@@ -7,10 +7,11 @@
 2. builds the hand-written kernels (mtn_tpu_torch/csrc/*.cu, one nvcc per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes of the beam-decode path and outside its gate
-   (the FFN also at 16, 161 and 256 rows; bf16 attention also at the edges
-   of its design: Lq 20, Lk 61, Lk 130 and 2048 (two passes over key
-   chunks), D 33, 40, 128 and 256, fully masked rows at Lk 61, 130 and
+   and bf16, at the shapes of the beam-decode path, of the sample and rank
+   paths (the FFN at 32, 64 and 200 rows, attention at 2 turns) and outside
+   its gate (the FFN also at 16, 161 and 256 rows; bf16 attention also at
+   the edges of its design: Lq 20, Lk 61, Lk 130 and 2048 (two passes over
+   key chunks), D 33, 40, 128 and 256, fully masked rows at Lk 61, 130 and
    2048, a per-query mask with two passes),
    each case twice on the same inputs, which must agree bitwise, and times
    kernel, plain version and the one-call PyTorch yardstick
@@ -29,7 +30,20 @@
    (f32, plain versions) on a small batch;
 6. profiles one warm turn batch of the main path (torch.profiler): host
    wall time, device time by kernel group, the hand-written kernels'
-   device time per call, and the device's idle share;
+   device time per call, and the device's idle share; then drives the
+   other decode modes and stage 4 on the same corpus and weights:
+   ``[sample]`` (``cli.generate --decode-style sample``,
+   temperature 1, top-k 50, top-p 0.9, through both kernels, counted;
+   the same seed again bitwise equal; temperature 0 bitwise equal to
+   greedy; 32,000 draws of the card's generator against their softmax by
+   chi-square), ``[stream]`` (the greedy and sample streams of one turn
+   batch reassembled, equal to the batch decoders token for token),
+   ``[rank]`` (``scripts/make_rank_candidates.py`` with 100 options, then
+   ``python -m mtn_tpu_torch.cli.rank`` at 2 turns a batch through both
+   kernels, counted, with its retrieval block; 2 turns' f32 scores on the
+   card against the CPU within 1e-3) and ``[evaluate]`` (``python -m
+   mtn_tpu_torch.cli.evaluate`` on the beam result: the Bleu_1..CIDEr
+   block, meaningless on random weights);
 7. ``[grad]``: for each kernel in f32 and bf16, the output and the
    gradients through its autograd wrapper (kernel forward, plain
    backward) against its plain version's, at the shapes of a batch-8
@@ -61,14 +75,18 @@ the package beside it. Its last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,           # dense tensor-core bf16
             "float32": 67e12}             # f32 outside the tensor cores
@@ -180,6 +198,8 @@ def attention_cases(torch, ak, dtype_name: str, gen):
     cases = [  # (B, H, Lq, Lk, D, mask)
         ((32, 8, 32, 32, 64), "keys"),   # AE self-attention (main path)
         ((32, 8, 32, 64, 64), "keys"),   # AE->video attention (main path)
+        ((2, 8, 32, 32, 64), "keys"),    # the same at rank's 2 turns
+        ((2, 8, 32, 64, 64), "keys"),
         ((160, 8, 1, 30, 64), "keys"),   # Lq = 1, outside the gate
         ((4, 8, 32, 64, 64), "empty"),   # a fully masked row
         ((4, 8, 32, 64, 64), "full"),    # a (B, 1, Lq, Lk) mask
@@ -243,10 +263,12 @@ def attention_cases(torch, ak, dtype_name: str, gen):
 
 
 def ffn_cases(torch, fk, dtype_name: str, gen):
-    """FFN at the decode step's 160 rows; at 16, 161 (a ragged row tile)
-    and 256 rows (the gate's edge); and at 300 and 1024 rows, outside the
-    gate. Each case runs twice on the same inputs and must agree bitwise.
-    Weights rotate over copies larger than L2 together, so every timed
+    """FFN at the decode step's 160 rows (beam), 32 (sample and stream)
+    and 200 (rank: 2 turns × 100 options), and at rank's precompute (the
+    AE FFN over 2 turns × 32 query positions, 64 rows); at 16, 161 (a
+    ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
+    rows, outside the gate. Each case runs twice on the same inputs and
+    must agree bitwise. Weights rotate over copies larger than L2 together, so every timed
     launch reads them from device memory, as a decode step does (each
     layer's FFN weights are evicted by the other layers')."""
     dt = getattr(torch, dtype_name)
@@ -262,7 +284,7 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
             torch.randn(F, D, generator=gen) / F ** 0.5,
             torch.randn(D, generator=gen) * 0.1)))
     rows = []
-    for N in (160, 16, 161, 256, 300, 1024):
+    for N in (160, 32, 200, 64, 16, 161, 256, 300, 1024):
         x = torch.randn(N, D, generator=gen).to(dev, dt)
         w1, b1, w2, b2 = weights[0]
         got = fk.ffn(x, w1, b1, w2, b2)
@@ -373,11 +395,14 @@ def write_corpus(root: str, seed: int = 0) -> dict:
     """DSTC7-format data at the flagship width, .npy features for every
     video, and the flagship config with seeded random weights in the
     port's checkpoint format (``prefix``): a test set with undisclosed
-    last answers (``test_set``, decoded with a 6000-entry vocabulary), and
+    last answers (``test_set``, decoded with a 6000-entry vocabulary), the
+    same dialogs with their real last answers (``lbl_test_set``), and
     train and valid sets whose answers are disclosed (``train_set``,
     ``valid_set``). The train captions and summaries run through every
     word, so the vocabulary the train CLI builds from them (cutoff 0)
     also has 6000 entries."""
+    import copy
+
     import numpy as np
     import torch
     from mtn_tpu_torch.config import DataConfig, ModelConfig
@@ -396,24 +421,23 @@ def write_corpus(root: str, seed: int = 0) -> dict:
     # concatenation from fusing two words into a new one
     tell = lambda: " ".join(next(cover) for _ in range(24)) + " "
 
-    def dialogs(prefix, n, undisclosed, caption):
+    def dialogs(prefix, n, caption):
         out = []
         for d in range(n):
             turns = [{"question": say(20, 30), "answer": say(5, 15)}
                      for _ in range(3)]
-            if undisclosed:
-                turns[-1]["answer"] = "__UNDISCLOSED__"
             out.append({"image_id": f"{prefix}{d:03d}", "caption": caption(),
                         "summary": caption(), "dialog": turns})
         return out
 
-    sets = {"test_set": dialogs("vid", N_DIALOGS, True,
-                                lambda: say(10, 20)),
-            "train_set": dialogs("tr", N_TRAIN_DIALOGS, False, tell),
-            "valid_set": dialogs("va", N_VALID_DIALOGS, False,
-                                 lambda: say(10, 20))}
+    sets = {"test_set": dialogs("vid", N_DIALOGS, lambda: say(10, 20)),
+            "train_set": dialogs("tr", N_TRAIN_DIALOGS, tell),
+            "valid_set": dialogs("va", N_VALID_DIALOGS, lambda: say(10, 20))}
+    labeled = copy.deepcopy(sets["test_set"])
+    for d in sets["test_set"]:
+        d["dialog"][-1]["answer"] = "__UNDISCLOSED__"
     corpus = {}
-    for name, ds in sets.items():
+    for name, ds in list(sets.items()) + [("lbl_test_set", labeled)]:
         corpus[name] = os.path.join(root, name + ".json")
         with open(corpus[name], "w") as f:
             json.dump({"type": "test", "version": "0.1", "dialogs": ds}, f)
@@ -567,6 +591,289 @@ def profile_decode(torch, prefix, test_set, fea_path):
                 g: groups.get(g, 0.0) * 1e3 / n if measured and n
                 else "not measured" for g, n in calls.items()},
             "top_kernels": top}
+
+
+# -- sample, stream, rank, evaluate -------------------------------------------
+SAMPLE_FLAGS = ("--temperature", "1", "--top-k", "50", "--top-p", "0.9")
+BEAM_FLAGS = ("--decode-style", "beam_search", "--beam", "5", "--penalty",
+              "1.0", "--nbest", "5")
+N_OPTIONS = 100
+RANK_TURNS = 2          # x 100 options = 200 rows, inside the FFN gate
+RANK_REF_TOL = 1e-3     # card (kernels) vs CPU (plain), f32, per option
+DRAW_P_MIN = 1e-4       # chi-square p-value of the card's draws
+METRIC_LINE = re.compile(r"^(Bleu_[1-4]|METEOR|ROUGE_L|CIDEr): ")
+
+
+def generate_argv(corpus: dict, prefix: str, out: str, *extra):
+    """``mtn_tpu_torch.cli.generate`` flags of the main path (the
+    undisclosed test set, maxlen 30, 32 turns a batch, bf16, both
+    kernels) on the checkpoint ``prefix``, then ``extra``."""
+    return ["--model", prefix + "_best", "--test-path", corpus["fea_path"],
+            "--test-set", corpus["test_set"], "--maxlen", "30",
+            "--turn-batch", "32", "--undisclosed-only", "1", "--dtype",
+            "bfloat16", "--device", "cuda", "--use-pallas-attention", "1",
+            "--use-pallas-ffn", "1", "--output", out, *extra]
+
+
+def run_path(torch, ak, fk, fn):
+    """``fn()`` with both kernels' counts set to 0 just before it; its
+    result, the counts just after it, and the calls per kernel shape."""
+    box = []
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    seen = record_launches(ak, fk, lambda: box.append(fn()))
+    torch.cuda.synchronize()
+    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    calls = {}
+    for (name, *shapes), rec in seen.items():
+        if name == "ffn":
+            label = f"ffn N{shapes[0][0]}"
+        else:
+            B, _, Lq, _ = shapes[0]
+            label = f"attention B{B} Lq{Lq} Lk{shapes[1][2]}"
+        calls[label] = calls.get(label, 0) + rec["calls"]
+    return box[0], launches, calls
+
+
+def answers_of(path: str):
+    with open(path) as f:
+        return [qa["answer"] for d in json.load(f)["dialogs"]
+                for qa in d["dialog"]]
+
+
+def draw_law(torch) -> dict:
+    """32,000 draws on the card from one transformed row (V 20,
+    temperature 0.8, top-k 12) through the sampler's own
+    ``gumbel_argmax`` (its generator lives on the logits' device: a CPU
+    generator cannot fill a CUDA tensor): the chi-square p-value against
+    the row's softmax, and the draws of masked tokens (must be 0)."""
+    import numpy as np
+    from scipy.stats import chisquare
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.decode.beam import (NEG_INF, BeamDecoder, draw_seed,
+                                           gumbel_argmax)
+    V = 20
+    rng = np.random.default_rng(4)
+    logp = torch.log_softmax(torch.from_numpy(
+        2.0 * rng.standard_normal((1, V))).float().cuda(), dim=-1)
+    logits = BeamDecoder(None, DecodeConfig(
+        temperature=0.8, top_k=12)).sample_transform(logp)[0]
+    kept = (logits > NEG_INF / 2).cpu().numpy()
+    probs = torch.softmax(logits.double(), dim=0).cpu().numpy()
+    counts = np.zeros(V, np.int64)
+    for pos in range(4):
+        draws = gumbel_argmax(logits.expand(8000, V), draw_seed(1, 0, pos))
+        if draws.device.type != "cuda":
+            raise AssertionError("the draws left the card")
+        counts += np.bincount(draws.cpu().numpy(), minlength=V)
+    p_value = chisquare(counts[kept], probs[kept] * counts.sum()).pvalue
+    return dict(draws=int(counts.sum()), kept=int(kept.sum()),
+                p_value=float(p_value), p_min=DRAW_P_MIN,
+                masked_draws=int(counts[~kept].sum()),
+                ok=bool(p_value > DRAW_P_MIN and not counts[~kept].any()))
+
+
+def sample_phase(torch, ak, fk, generate, corpus: dict, root: str) -> dict:
+    """``cli.generate --decode-style sample`` (temperature 1, top-k 50,
+    top-p 0.9) through both kernels, counted; the same run again (the
+    result JSON must be bitwise equal); ``--temperature 0`` against
+    greedy (bitwise equal); the draw law on the card."""
+    prefix = corpus["prefix"]
+    path = lambda name: os.path.join(root, name + ".json")
+    stats_path = path("sample_stats")
+    t0 = time.time()
+    rc, launches, calls = run_path(torch, ak, fk, lambda: generate.main(
+        generate_argv(corpus, prefix, path("sample"), "--decode-style",
+                      "sample", *SAMPLE_FLAGS, "--stats-output",
+                      stats_path)))
+    wall = time.time() - t0
+    rcs = [rc]
+    rcs.append(generate.main(generate_argv(
+        corpus, prefix, path("sample_again"), "--decode-style", "sample",
+        *SAMPLE_FLAGS)))
+    rcs.append(generate.main(generate_argv(
+        corpus, prefix, path("sample_t0"), "--decode-style", "sample",
+        "--temperature", "0")))
+    rcs.append(generate.main(generate_argv(
+        corpus, prefix, path("greedy"), "--decode-style", "greedy")))
+    if any(rcs):
+        raise AssertionError(f"sample: generate exit codes {rcs}")
+    read = lambda name: open(path(name), "rb").read()
+    answers = answers_of(path("sample"))
+    with open(stats_path) as f:
+        stats = json.load(f)
+    return dict(
+        launches=launches, calls_by_shape=calls, wall_s=wall,
+        responses_per_sec=stats["responses_per_sec"],
+        answers=len(answers), example=answers[0],
+        filled=len(answers) == N_DIALOGS and "__UNDISCLOSED__" not in answers,
+        same_seed_bitwise=read("sample") == read("sample_again"),
+        temperature_0_equals_greedy=read("sample_t0") == read("greedy"),
+        draw_law=draw_law(torch))
+
+
+def assemble(stream, n_rows: int, eos: int):
+    """Per-row tokens of a token stream, cut at each row's first <eos>;
+    and the number of yields."""
+    rows, done, steps = [[] for _ in range(n_rows)], [False] * n_rows, 0
+    for tokens in stream:
+        steps += 1
+        for i, t in enumerate(tokens):
+            if not done[i]:
+                done[i] = int(t) == eos
+                if not done[i]:
+                    rows[i].append(int(t))
+    return rows, steps
+
+
+def flagship_batch(corpus: dict, rows: int):
+    """The first (longest) batch of ``rows`` turns of the undisclosed test
+    set at the main path's buckets, its plan, the dataset, the config and
+    the checkpoint."""
+    from mtn_tpu_torch.config import config_from_dict
+    from mtn_tpu_torch.data.batching import make_batch, make_batch_indices
+    from mtn_tpu_torch.data.dataset import load
+    from mtn_tpu_torch.weights import load_checkpoint, load_conf
+    vocab, conf = load_conf(corpus["prefix"])
+    data = load(conf["data"]["fea_type"], corpus["fea_path"],
+                corpus["test_set"], vocab, include_caption="caption,summary",
+                separate_caption=True, undisclosed_only=True)
+    plans, _ = make_batch_indices(data, rows, max_length=10 ** 9,
+                                  separate_caption=True)
+    hb = make_batch(data, plans[0], separate_caption=True, length_bucket=32,
+                    feature_bucket=32, pad_rows_to=rows)
+    return (hb, plans[0], data, config_from_dict("model", conf["model"]),
+            load_checkpoint(corpus["prefix"])[0])
+
+
+def stream_phase(torch, corpus: dict) -> dict:
+    """One flagship turn batch (32 turns, bf16, both kernels): the greedy
+    stream and the sample stream (folds 0 and 3) reassembled against
+    ``greedy_batch`` and ``sample_batch``, token for token; host ms per
+    streamed step."""
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_model
+    hb, _, _, cfg, sd = flagship_batch(corpus, 32)
+    cfg.dtype = "bfloat16"
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    db = device_batch(hb, "cuda", "bfloat16")
+    dec = BeamDecoder(load_model(cfg, sd, "cuda"), DecodeConfig(
+        maxlen=30, decode_style="sample", temperature=1.0, top_k=50,
+        top_p=0.9))
+    n = int(db.valid.sum())
+    out = {}
+    for style, fold in (("greedy", 0), ("sample", 0), ("sample", 3)):
+        want = (dec.greedy_batch(db) if style == "greedy"
+                else dec.sample_batch(db, fold=fold))
+        t0 = time.perf_counter()
+        got, steps = assemble(dec.stream_tokens(db, style, fold), n,
+                              dec.eos)
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        out[f"{style}_fold{fold}"] = dict(equal=got == want, steps=steps,
+                                          host_ms_per_step=ms,
+                                          tokens=sum(map(len, got)))
+    return out
+
+
+def rank_reference(torch, corpus: dict, cand_path: str) -> dict:
+    """Rank scores of the first 2 turns' 100 options, f32, on the card
+    (both kernels) and on the CPU (plain versions): max |Δ| per option."""
+    from mtn_tpu_torch.cli.rank import _align_candidates
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.data.vocab import words2ids
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_model
+    hb, plan, data, cfg, sd = flagship_batch(corpus, RANK_TURNS)
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    with open(cand_path) as f:
+        turn_cands = _align_candidates(data, json.load(f), True)
+    cands = [[words2ids(o, data.vocab)[1:-1].tolist()
+              for o in turn_cands[q]["answer_options"]] for q in plan.qa_ids]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dec = BeamDecoder(load_model(cfg, sd, dev), DecodeConfig())
+        got[dev] = torch.tensor(dec.rank_batch(device_batch(hb, dev), cands,
+                                               cand_bucket=N_OPTIONS))
+    card, cpu = got["cuda"], got["cpu"]
+    if card.shape != (RANK_TURNS, N_OPTIONS) or \
+            not torch.isfinite(card).all():
+        raise AssertionError(f"rank reference: card scores of shape "
+                             f"{tuple(card.shape)}, or not finite")
+    return dict(max_abs_diff=(card - cpu).abs().max().item(),
+                tol=RANK_REF_TOL, score_range=[card.min().item(),
+                                               card.max().item()])
+
+
+def rank_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
+    """Candidates built by ``scripts/make_rank_candidates.py`` (100
+    options per last turn); ``cli.rank --turn-batch 2`` (bf16, both
+    kernels: 200 rows a decode step), counted; its scores, ranks and the
+    retrieval block; then the f32 card-vs-CPU reference."""
+    from mtn_tpu_torch.cli import rank
+    cand_path = os.path.join(root, "cands.json")
+    subprocess.run([sys.executable, os.path.join(HERE, "scripts",
+                                                 "make_rank_candidates.py"),
+                    corpus["lbl_test_set"], cand_path, "--last",
+                    "--num-options", str(N_OPTIONS), "--seed", "1"],
+                   check=True, capture_output=True, text=True, timeout=120)
+    out = os.path.join(root, "ranks.json")
+    printed = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(printed):
+            return rank.main([
+                "--model", corpus["prefix"] + "_best", "--test-path",
+                corpus["fea_path"], "--test-set", corpus["test_set"],
+                "--candidates", cand_path, "--undisclosed-only", "1",
+                "--turn-batch", str(RANK_TURNS), "--dtype", "bfloat16",
+                "--device", "cuda", "--use-pallas-attention", "1",
+                "--use-pallas-ffn", "1", "--output", out])
+    t0 = time.time()
+    rc, launches, calls = run_path(torch, ak, fk, run)
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"rank exited {rc}")
+    with open(out) as f:
+        result = json.load(f)
+    turns = [t for d in result["dialogs"] for t in d["dialog"]]
+    block = [line for line in printed.getvalue().splitlines()
+             if line.split(":")[0] in ("r@1", "r@5", "r@10", "mean_rank",
+                                        "mrr")]
+    ok = (len(turns) == N_DIALOGS and len(block) == 5
+          and all(len(t["scores"]) == N_OPTIONS and "gt_rank" in t
+                  and all(math.isfinite(s) for s in t["scores"])
+                  for t in turns))
+    return dict(launches=launches, calls_by_shape=calls, wall_s=wall,
+                turns=len(turns), options=N_OPTIONS,
+                options_per_sec=len(turns) * N_OPTIONS / wall,
+                metrics=result.get("metrics"), block=block, ok=ok,
+                reference=rank_reference(torch, corpus, cand_path))
+
+
+def evaluate_phase(corpus: dict, result_path: str, root: str) -> dict:
+    """run.sh stage 4 on the ``[main]`` result JSON against the labeled
+    test set: ``python -m mtn_tpu_torch.cli.evaluate`` annotation,
+    hypotheses and score, each its own process; the printed block."""
+    ref, hyp, scores = (os.path.join(root, n) for n in
+                        ("ref.json", "hyp.json", "scores.json"))
+
+    def evaluate(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "mtn_tpu_torch.cli.evaluate", *args],
+            cwd=HERE, check=True, capture_output=True, text=True,
+            timeout=300).stdout
+    evaluate("annotation", "--last", corpus["lbl_test_set"], ref)
+    evaluate("hypotheses", "--last", result_path, hyp)
+    block = [line for line in evaluate("score", "--json", scores, ref,
+                                       hyp).splitlines()
+             if METRIC_LINE.match(line)]
+    with open(ref) as f:
+        n_refs = len(json.load(f)["annotations"])
+    with open(scores) as f:
+        return dict(block=block, scores=json.load(f), references=n_refs,
+                    ok=len(block) == 7 and n_refs == N_DIALOGS)
 
 
 # -- training ---------------------------------------------------------------
@@ -958,7 +1265,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
-    t0 = time.time()
+    phase_s = {}
+    t_phase = t0 = time.time()
     logs = _build.build_all([ak.KERNEL, fk.KERNEL])
     print(f"[build] {time.time() - t0:.1f}s")
     for log in logs:
@@ -988,6 +1296,8 @@ def main() -> int:
                for r in grads):
         return fail("an output or a gradient through a kernel wrapper is "
                     "outside tolerance")
+    phase_s["build, kernel, grad"] = time.time() - t_phase
+    t_phase = time.time()
 
     with tempfile.TemporaryDirectory() as root:
         corpus = write_corpus(root)
@@ -998,14 +1308,8 @@ def main() -> int:
         ak.KERNEL.launches = 0
         fk.KERNEL.launches = 0
         t0 = time.time()
-        rc = generate.main([
-            "--model", prefix + "_best", "--test-path", fea_path,
-            "--test-set", test_set, "--decode-style", "beam_search",
-            "--beam", "5", "--penalty", "1.0", "--nbest", "5",
-            "--maxlen", "30", "--turn-batch", "32", "--undisclosed-only",
-            "1", "--dtype", "bfloat16", "--device", "cuda",
-            "--use-pallas-attention", "1", "--use-pallas-ffn", "1",
-            "--output", out, "--stats-output", stats_path])
+        rc = generate.main(generate_argv(corpus, prefix, out, *BEAM_FLAGS,
+                                         "--stats-output", stats_path))
         torch.cuda.synchronize()
         launches = {"attention": ak.KERNEL.launches,
                     "ffn": fk.KERNEL.launches}
@@ -1039,6 +1343,44 @@ def main() -> int:
         prof = profile_decode(torch, prefix, test_set, fea_path)
         print(f"[profile] one warm turn batch (32 turns, beam 5, bf16): "
               f"{json.dumps(prof)}")
+        phase_s["main"] = time.time() - t_phase
+
+        # the other decode modes, ranking and stage-4 scoring
+        t_phase = time.time()
+        sample = sample_phase(torch, ak, fk, generate, corpus, root)
+        print(f"[sample] {json.dumps(sample)}")
+        if not (sample["filled"] and sample["same_seed_bitwise"]
+                and sample["temperature_0_equals_greedy"]
+                and sample["draw_law"]["ok"]):
+            return fail(f"the sample path failed a check: {sample}")
+        if min(sample["launches"].values()) <= 0:
+            return fail("a kernel never launched on the sample path: "
+                        f"{sample['launches']}")
+        stream = stream_phase(torch, corpus)
+        print(f"[stream] {json.dumps(stream)}")
+        if not all(s["equal"] for s in stream.values()):
+            return fail("a reassembled stream differs from its batch decode")
+        ranked = rank_phase(torch, ak, fk, corpus, root)
+        for line in ranked["block"]:
+            print(f"[rank] {line}")
+        print(f"[rank] {json.dumps(ranked)}")
+        if not ranked["ok"]:
+            return fail("rank: scores, ranks or the retrieval block are "
+                        "missing or not finite")
+        if min(ranked["launches"].values()) <= 0:
+            return fail("a kernel never launched on the rank path: "
+                        f"{ranked['launches']}")
+        if not ranked["reference"]["max_abs_diff"] <= RANK_REF_TOL:
+            return fail("rank scores on the card disagree with the CPU")
+        scored = evaluate_phase(corpus, out, root)
+        for line in scored["block"]:
+            print(f"[evaluate] {line}  (random weights and words: "
+                  "meaningless as a score)")
+        print(f"[evaluate] {json.dumps(scored)}")
+        if not scored["ok"]:
+            return fail("evaluate did not print the Bleu_1..CIDEr block")
+        phase_s["sample, stream, rank, evaluate"] = time.time() - t_phase
+        t_phase = time.time()
 
         # stage 2: (a) run.sh's dropout, batch 32, remat and cut_a: the
         # kernels run only in validation, as in JAX; (b) dropout 0, batch
@@ -1058,17 +1400,9 @@ def main() -> int:
             return fail("run (b): a kernel never launched inside a train "
                         f"step: {train_launches}")
         out = os.path.join(root, "trained.json")
-        rc = generate.main([
-            "--model", run_a["prefix"] + "_best", "--test-path", fea_path,
-            "--test-set", test_set, "--decode-style", "beam_search",
-            "--beam", "5", "--penalty", "1.0", "--nbest", "5",
-            "--maxlen", "30", "--turn-batch", "32", "--undisclosed-only",
-            "1", "--dtype", "bfloat16", "--device", "cuda",
-            "--use-pallas-attention", "1", "--use-pallas-ffn", "1",
-            "--output", out])
-        with open(out) as f:
-            trained = [qa["answer"] for d in json.load(f)["dialogs"]
-                       for qa in d["dialog"]]
+        rc = generate.main(generate_argv(corpus, run_a["prefix"], out,
+                                         *BEAM_FLAGS))
+        trained = answers_of(out)
         if rc != 0 or len(trained) != N_DIALOGS or \
                 "__UNDISCLOSED__" in trained:
             return fail("generate did not decode the trained checkpoint")
@@ -1084,6 +1418,8 @@ def main() -> int:
         print(f"[train-profile] one warm train step (batch 8, bf16, dropout "
               f"0, both kernels; kernels_off: both off): "
               f"{json.dumps(tprof)}")
+        phase_s["train"] = time.time() - t_phase
+    print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 
     def pick(kernel, shape):
         return next(r for r in rows if r["kernel"] == kernel and
@@ -1097,6 +1433,8 @@ def main() -> int:
     ]
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
                     launches=launches[name],
+                    sample_launches=sample["launches"][name],
+                    rank_launches=ranked["launches"][name],
                     train_launches=train_launches[name],
                     max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],

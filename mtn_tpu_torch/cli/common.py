@@ -75,8 +75,6 @@ def check_unported(args: argparse.Namespace) -> None:
         refused.append("mesh sizes > 1 (ROADMAP: parallel)")
     if args.feature_transfer == "int8":
         refused.append("--feature-transfer int8 (ROADMAP: int8)")
-    if getattr(args, "decode_style", "") == "sample":
-        refused.append("--decode-style sample (ROADMAP: decode modes)")
     if args.profile_dir:
         refused.append("--profile-dir (ROADMAP: tools)")
     if args.nan_checks:

@@ -5,9 +5,11 @@
         --decode-style beam_search --beam 5 --turn-batch 32 \\
         --use-pallas-attention 1 --use-pallas-ffn 1 --output result.json
 
-Turns are grouped into length-sorted batches and beam-decoded (or greedy)
-on one device; the result JSON has the format of ``mtn_tpu.cli.generate``
-and is scored by ``python -m mtn_tpu.cli.evaluate``. The checkpoint is the
+Turns are grouped into length-sorted batches and beam-decoded (or greedy,
+or sampled: ``--decode-style sample`` with ``--temperature``, ``--top-k``,
+``--top-p`` and ``--sample-seed``) on one device; the result JSON has the
+format of ``mtn_tpu.cli.generate`` and is scored by ``python -m
+mtn_tpu_torch.cli.evaluate`` (run.sh stage 4). The checkpoint is the
 port's format (``mtn_tpu_torch/weights.py``). A producer thread builds and
 uploads the next batches while the device decodes.
 """
@@ -126,11 +128,7 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
     t_first = None
     producer = threading.Thread(target=produce, daemon=True)
     producer.start()
-    while True:
-        item = q.get()
-        if item is None:
-            break
-        plan, db = item
+    for bi, (plan, db) in enumerate(iter(q.get, None)):
         if decode_cfg.decode_style == "beam_search":
             raw = decoder.beam_batch_raw(db)
             steps.append(raw.n_steps)
@@ -141,7 +139,11 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
                                             vocab["<eos>"])
                 scores[qa_id] = res.scores[0]
         else:
-            for qa_id, row in zip(plan.qa_ids, decoder.greedy_batch(db)):
+            # the plan index folds into the sampler's noise, as in JAX
+            rows = (decoder.sample_batch(db, fold=bi)
+                    if decode_cfg.decode_style == "sample"
+                    else decoder.greedy_batch(db))
+            for qa_id, row in zip(plan.qa_ids, rows):
                 answers[qa_id] = " ".join(vlist[t] for t in row)
                 scores[qa_id] = 0.0
         if t_first is None:

@@ -5,8 +5,8 @@ so a ``<prefix>.conf.json`` written by ``mtn_tpu`` training loads here
 unchanged and one config drives both packages. ``use_pallas_attention``
 and ``use_pallas_ffn`` keep their names: in this package they select the
 hand-written Hopper kernels (``mtn_tpu_torch/csrc``). Fields whose paths
-the port does not run yet (``batched_ae``, int8 feature transfer,
-sampling) are kept for the schema and refused where used.
+the port does not run yet (``batched_ae``, int8 feature transfer) are kept
+for the schema and refused where used.
 """
 
 from __future__ import annotations

@@ -129,7 +129,7 @@ def test_cli_end_to_end_on_port_checkpoint(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--weights-quant", "int8"],
-                                  ["--decode-style", "sample"],
+                                  ["--profile-dir", "prof"],
                                   ["--feature-transfer", "int8"],
                                   ["--mesh-data", "2"],
                                   ["--multihost", "auto"]])

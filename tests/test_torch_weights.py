@@ -1,6 +1,7 @@
 """The weight bridge, init laws and checkpoints of the port, and the rule
 that the port imports no JAX and nothing of mtn_tpu."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -119,5 +120,73 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
     assert len(loaded) >= 15
     for name in ("cli.train", "train.trainer", "train.loss",
                  "train.schedule", "data.pipeline", "utils.checkpoint",
-                 "utils.logging"):
+                 "utils.logging", "cli.rank", "cli.evaluate",
+                 "evalmetrics.meteor", "evalmetrics.retrieval"):
         assert f"mtn_tpu_torch.{name}" in loaded, name
+
+
+def _of_jax_package(name) -> bool:
+    return isinstance(name, str) and (name == "mtn_tpu"
+                                      or name.startswith("mtn_tpu."))
+
+
+def jax_package_uses(source: str):
+    """(line, what) of every use of the JAX package in ``source``: an
+    ``import``/``from`` of ``mtn_tpu``, at any depth (inside functions
+    too), ``import_module``/``__import__`` of it, and ``-m mtn_tpu.``,
+    whether in one string or as a ``"-m"`` element before it."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names
+                      if _of_jax_package(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and _of_jax_package(node.module):
+                found.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "attr", getattr(fn, "id", ""))
+            if name in ("import_module", "__import__") and node.args and \
+                    isinstance(node.args[0], ast.Constant) and \
+                    _of_jax_package(node.args[0].value):
+                found.append((node.lineno, node.args[0].value))
+        elif isinstance(node, (ast.List, ast.Tuple)):
+            items = [e.value if isinstance(e, ast.Constant) else None
+                     for e in node.elts]
+            found += [(node.lineno, f"-m {b}") for a, b in
+                      zip(items, items[1:]) if a == "-m"
+                      and _of_jax_package(b)]
+        elif isinstance(node, ast.Constant) and \
+                isinstance(node.value, str) and "-m mtn_tpu." in node.value:
+            found.append((node.lineno, node.value.strip()[:60]))
+    return found
+
+
+def test_import_guard_finds_every_kind_of_use():
+    src = ("import mtn_tpu\nimport os, mtn_tpu.config as c\n"
+           "from mtn_tpu.data import load\n"
+           "def f():\n    from mtn_tpu.cli import rank\n"
+           "    importlib.import_module('mtn_tpu.serve')\n"
+           "    subprocess.run([sys.executable, '-m',\n"
+           "                    'mtn_tpu.cli.evaluate'])\n"
+           "    os.system('python -m mtn_tpu.cli.evaluate score a b')\n"
+           "import mtn_tpu_torch.cli\nfrom mtn_tpu_torch import weights\n"
+           "from . import beam\nx = ['-m', 'mtn_tpu_torch.cli.rank']\n")
+    assert [line for line, _ in jax_package_uses(src)] == \
+        [1, 2, 3, 5, 6, 7, 9]
+
+
+def test_port_and_chip_smoke_never_use_the_jax_package():
+    """Every .py of the port and ``chip_smoke.py``, parsed: no use of
+    ``mtn_tpu`` anywhere, lazy imports inside functions included."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "mtn_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    bad = {}
+    for path in paths:
+        with open(path) as f:
+            uses = jax_package_uses(f.read())
+        if uses:
+            bad[os.path.relpath(path, REPO)] = uses
+    assert not bad, bad
