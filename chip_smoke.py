@@ -7,9 +7,10 @@
 2. builds the hand-written kernels (mtn_tpu_torch/csrc/*.cu, one nvcc per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes of the beam-decode path, of the sample and rank
-   paths (the FFN at 32, 64 and 200 rows, attention at 2 turns) and outside
-   its gate (the FFN also at 16, 161 and 256 rows; bf16 attention also at
+   and bf16, at the shapes of the beam-decode path, of the sample, rank and
+   serving paths (the FFN at 32, 64, 80 and 200 rows, attention at 2 and
+   16 turns) and outside its gate (the FFN also at 16, 161 and 256 rows;
+   bf16 attention also at
    the edges of its design: Lq 20, Lk 61, Lk 130 and 2048 (two passes over
    key chunks), D 33, 40, 128 and 256, fully masked rows at Lk 61, 130 and
    2048, a per-query mask with two passes),
@@ -43,7 +44,20 @@
    kernels, counted, with its retrieval block; 2 turns' f32 scores on the
    card against the CPU within 1e-3) and ``[evaluate]`` (``python -m
    mtn_tpu_torch.cli.evaluate`` on the beam result: the Bleu_1..CIDEr
-   block, meaningless on random weights);
+   block, meaningless on random weights); then ``[int8]``
+   (``cli.generate --weights-quant`` int8-fp-head and int8, counted:
+   every answer filled, attention launched and the FFN kernel never; the
+   f32 int8 model on the card against the CPU within 1e-3; an
+   int8-transfer batch on the card bitwise equal to the CPU's; resident
+   weight bytes and top-1 agreement of int8 with bf16 logits) and
+   ``[serve]`` (an in-process ``serve_http.start_server`` over a bf16
+   beam session with both kernels at 16 turns a batch, then over an
+   int8-fp-head one: /v1/respond bitwise equal to the session's own
+   answer, 32 requests from 8 threads in fewer launches, /v1/rank with
+   100 candidates, a reassembled /v1/stream equal to the greedy decode,
+   /admin/reload, /metrics; kernel launches counted over the HTTP
+   traffic: both kernels for bf16, attention and never the FFN for
+   int8);
 7. ``[grad]``: for each kernel in f32 and bf16, the output and the
    gradients through its autograd wrapper (kernel forward, plain
    backward) against its plain version's, at the shapes of a batch-8
@@ -200,6 +214,8 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((32, 8, 32, 64, 64), "keys"),   # AE->video attention (main path)
         ((2, 8, 32, 32, 64), "keys"),    # the same at rank's 2 turns
         ((2, 8, 32, 64, 64), "keys"),
+        ((16, 8, 32, 32, 64), "keys"),   # the same at serving's 16 turns
+        ((16, 8, 32, 64, 64), "keys"),
         ((160, 8, 1, 30, 64), "keys"),   # Lq = 1, outside the gate
         ((4, 8, 32, 64, 64), "empty"),   # a fully masked row
         ((4, 8, 32, 64, 64), "full"),    # a (B, 1, Lq, Lk) mask
@@ -263,9 +279,10 @@ def attention_cases(torch, ak, dtype_name: str, gen):
 
 
 def ffn_cases(torch, fk, dtype_name: str, gen):
-    """FFN at the decode step's 160 rows (beam), 32 (sample and stream)
-    and 200 (rank: 2 turns × 100 options), and at rank's precompute (the
-    AE FFN over 2 turns × 32 query positions, 64 rows); at 16, 161 (a
+    """FFN at the decode step's 160 rows (beam), 32 (sample and stream),
+    200 (rank: 2 turns × 100 options) and 80 (serving: 16 turns × beam
+    5), and at rank's precompute (the AE FFN over 2 turns × 32 query
+    positions, 64 rows); at 16, 161 (a
     ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
     rows, outside the gate. Each case runs twice on the same inputs and
     must agree bitwise. Weights rotate over copies larger than L2 together, so every timed
@@ -284,7 +301,7 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
             torch.randn(F, D, generator=gen) / F ** 0.5,
             torch.randn(D, generator=gen) * 0.1)))
     rows = []
-    for N in (160, 32, 200, 64, 16, 161, 256, 300, 1024):
+    for N in (160, 32, 200, 80, 64, 16, 161, 256, 300, 1024):
         x = torch.randn(N, D, generator=gen).to(dev, dt)
         w1, b1, w2, b2 = weights[0]
         got = fk.ffn(x, w1, b1, w2, b2)
@@ -460,14 +477,17 @@ def write_corpus(root: str, seed: int = 0) -> dict:
     return corpus
 
 
-def reference_check(torch, prefix, test_set, fea_path):
+def reference_check(torch, prefix, test_set, fea_path, weights_quant=""):
     """The flagship model on the card (f32, both kernels) against the same
     weights on the CPU (f32, plain versions): init_decode_state and three
-    decode steps on two turns; returns the max abs log-prob difference."""
+    decode steps on two turns; returns the max abs log-prob difference.
+    ``weights_quant`` quantizes both models alike (int8 kernels: the FFN
+    kernel is skipped, attention runs)."""
     from mtn_tpu_torch.config import config_from_dict
     from mtn_tpu_torch.data.batching import make_batch, make_batch_indices
     from mtn_tpu_torch.data.dataset import load
     from mtn_tpu_torch.train.batch import batch_masks, device_batch
+    from mtn_tpu_torch.utils.quantize import quantize_model
     from mtn_tpu_torch.weights import load_checkpoint, load_conf, load_model
 
     vocab, conf = load_conf(prefix)
@@ -484,6 +504,9 @@ def reference_check(torch, prefix, test_set, fea_path):
     logps = []
     for dev in ("cuda", "cpu"):
         model = load_model(cfg, sd, dev)
+        if weights_quant:
+            quantize_model(model, sd,
+                           skip_generator=weights_quant == "int8-fp-head")
         db = device_batch(hb, dev)
         with torch.inference_mode():
             masks, _ = batch_masks(db, 1)
@@ -600,6 +623,7 @@ BEAM_FLAGS = ("--decode-style", "beam_search", "--beam", "5", "--penalty",
 N_OPTIONS = 100
 RANK_TURNS = 2          # x 100 options = 200 rows, inside the FFN gate
 RANK_REF_TOL = 1e-3     # card (kernels) vs CPU (plain), f32, per option
+INT8_REF_TOL = 1e-3     # the same for the int8 model, f32 (as [reference])
 DRAW_P_MIN = 1e-4       # chi-square p-value of the card's draws
 METRIC_LINE = re.compile(r"^(Bleu_[1-4]|METEOR|ROUGE_L|CIDEr): ")
 
@@ -874,6 +898,268 @@ def evaluate_phase(corpus: dict, result_path: str, root: str) -> dict:
     with open(scores) as f:
         return dict(block=block, scores=json.load(f), references=n_refs,
                     ok=len(block) == 7 and n_refs == N_DIALOGS)
+
+
+# -- int8 and serving ---------------------------------------------------------
+INT8_MODES = ("int8-fp-head", "int8")
+SERVE_TURN_BATCH = 16   # x beam 5 = 80 rows a step, inside the FFN gate
+SERVE_REQUESTS = 32
+SERVE_THREADS = 8
+
+
+def int8_weights(torch, corpus: dict) -> dict:
+    """The flagship bf16 model with full-precision, int8-fp-head and int8
+    weights on the card: ``quantized_size_bytes`` of each state_dict and
+    the ``torch.cuda.memory_allocated`` the model holds; and, on one
+    32-turn batch, three decode steps fed the bf16 model's argmax tokens:
+    the share of rows whose argmax under int8 weights is the bf16 one."""
+    from mtn_tpu_torch.train.batch import batch_masks, device_batch
+    from mtn_tpu_torch.utils.quantize import (quantize_model,
+                                              quantized_size_bytes)
+    from mtn_tpu_torch.weights import load_model
+    hb, _, _, cfg, sd = flagship_batch(corpus, 32)
+    cfg.dtype = "bfloat16"
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    db = device_batch(hb, "cuda", "bfloat16")
+    B = db.query.shape[0]
+    sizes, argmax, teacher = {}, {}, []
+    for quant in ("",) + INT8_MODES:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        model = load_model(cfg, sd, "cuda")
+        if quant:
+            quantize_model(model, sd, skip_generator=quant == "int8-fp-head")
+        torch.cuda.synchronize()
+        name = quant or "bf16"
+        sizes[name] = dict(memory_allocated=torch.cuda.memory_allocated()
+                           - before, **quantized_size_bytes(
+                               model.state_dict()))
+        with torch.inference_mode():
+            masks, _ = batch_masks(db, 1)
+            state = model.init_decode_state(db.query, db.his, db.cap,
+                                            db.fts, masks)
+            kv = model.init_self_kv(B, 4, "cuda")
+            tok = torch.full((B,), 2, dtype=torch.int64, device="cuda")
+            out = []
+            for pos in range(3):
+                logp, kv = model.decode_step(state, tok, pos, kv)
+                out.append(logp.argmax(dim=-1))
+                if not quant:
+                    teacher.append(out[-1])
+                tok = teacher[pos]
+        argmax[name] = torch.stack(out)
+        del model, state, kv
+        torch.cuda.empty_cache()
+    return dict(weights=sizes, top1_agreement_with_bf16={
+        q: (argmax[q] == argmax["bf16"]).float().mean().item()
+        for q in INT8_MODES}, agreement_rows=3 * B)
+
+
+def int8_phase(torch, ak, fk, generate, corpus: dict, root: str) -> dict:
+    """``cli.generate --weights-quant`` int8-fp-head and int8 (bf16, both
+    kernel flags, beam 5) on the 64-turn test set, each counted: every
+    answer filled, attention launched and the FFN kernel never (JAX skips
+    it for int8 weights); the f32 int8 model on the card against the CPU
+    (both kernels vs plain versions); an int8-transfer batch on the card
+    against the CPU's, bitwise; resident weight bytes and top-1 agreement
+    (``int8_weights``)."""
+    from mtn_tpu_torch.train.batch import device_batch
+    out = {}
+    for quant in INT8_MODES:
+        path = os.path.join(root, f"result_{quant}.json")
+        stats_path = os.path.join(root, f"stats_{quant}.json")
+        t0 = time.time()
+        rc, launches, calls = run_path(torch, ak, fk, lambda: generate.main(
+            generate_argv(corpus, corpus["prefix"], path, *BEAM_FLAGS,
+                          "--weights-quant", quant, "--stats-output",
+                          stats_path)))
+        wall = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"int8: generate {quant} exited {rc}")
+        answers = answers_of(path)
+        with open(stats_path) as f:
+            stats = json.load(f)
+        out[quant] = dict(
+            launches=launches, calls_by_shape=calls, wall_s=wall,
+            responses_per_sec=stats["responses_per_sec"],
+            mean_exit_step=stats["mean_exit_step"], example=answers[0],
+            filled=len(answers) == N_DIALOGS
+            and "__UNDISCLOSED__" not in answers)
+    out["reference"] = dict(
+        max_abs_diff=reference_check(torch, corpus["prefix"],
+                                     corpus["test_set"], corpus["fea_path"],
+                                     weights_quant="int8"),
+        tol=INT8_REF_TOL)
+    hb = flagship_batch(corpus, 32)[0]
+    card, cpu = (device_batch(hb, dev, "int8") for dev in ("cuda", "cpu"))
+    out["transfer_bitwise"] = all(
+        a.device.type == "cuda" and torch.equal(a.cpu(), b)
+        for a, b in zip(card.fts, cpu.fts))
+    out.update(int8_weights(torch, corpus))
+    return out
+
+
+def serve_bodies(corpus: dict, n: int):
+    """/v1/respond bodies for the last turns of the first ``n`` test
+    dialogs: question, history, caption and both feature streams as
+    ``npy_b64`` (the compact form for I3D-size payloads)."""
+    import base64
+
+    import numpy as np
+    with open(corpus["test_set"]) as f:
+        dialogs = json.load(f)["dialogs"][:n]
+
+    def b64(path):
+        buf = io.BytesIO()
+        np.save(buf, np.load(path))
+        return {"npy_b64": base64.b64encode(buf.getvalue()).decode()}
+    fea = corpus["fea_path"]
+    return [{"question": d["dialog"][-1]["question"],
+             "history": [[t["question"], t["answer"]]
+                         for t in d["dialog"][:-1]],
+             "caption": d["caption"],
+             "features": {ft: b64(fea.replace("<FeaType>", ft).replace(
+                 "<ImageID>", d["image_id"])) for ft in corpus["fea_types"]}}
+            for d in dialogs]
+
+
+def http(base: str, path: str, body=None, timeout: float = 300):
+    """(status, parsed JSON or text) of one request to the server."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        base + path, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        text = r.read().decode()
+        kind = r.headers["Content-Type"]
+        return r.status, (json.loads(text) if kind == "application/json"
+                          else text)
+
+
+def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
+    """An in-process ``serve_http.start_server`` on 127.0.0.1:0 over a
+    bf16 beam session (beam 5, maxlen 30, both kernels, ``turn_batch``
+    16, warmed up; ``quant``: its weights): /v1/respond against the
+    session's own respond_batch of the same request, bitwise; 32 requests
+    from 8 threads (requests/sec, /stats latency, batch launches);
+    /v1/rank with 100 candidates; a /v1/stream reassembled against the
+    greedy decode of the same request; /admin/reload (the epoch, and the
+    same answer after it); /metrics. Kernel launches are counted over the
+    HTTP traffic alone: the counts are set to 0 before each request (or
+    the 32 concurrent ones) and read after it."""
+    import threading
+
+    import numpy as np
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.serve import ServingSession, encode_requests
+    from mtn_tpu_torch.serve_http import parse_request, start_server
+    from mtn_tpu_torch.weights import load_conf
+    session = ServingSession.from_checkpoint(
+        corpus["prefix"] + "_best", DecodeConfig(
+            maxlen=30, beam=5, nbest=5, penalty=1.0,
+            turn_batch=SERVE_TURN_BATCH),
+        model_overrides={"dtype": "bfloat16", "use_pallas_attention": True,
+                         "use_pallas_ffn": True},
+        weights_quant=quant, device="cuda")
+    warmup_s = session.warmup(stream=True)
+    bodies = serve_bodies(corpus, SERVE_REQUESTS)
+    launches, calls = {"attention": 0, "ffn": 0}, {}
+
+    def counted(fn):
+        result, n, by_shape = run_path(torch, ak, fk, fn)
+        for name, count in n.items():
+            launches[name] += count
+        for label, count in by_shape.items():
+            calls[label] = calls.get(label, 0) + count
+        return result
+
+    srv = start_server(session, port=0, max_wait_ms=20.0)
+    base = "http://%s:%d" % srv.server_address
+    out = dict(weights_quant=quant or None, warmup_s=warmup_s)
+    try:
+        one = dict(bodies[0], nbest=5)
+        code, got = counted(lambda: http(base, "/v1/respond", one))
+        want = session.respond_batch([parse_request(one)])[0]
+        out["respond_equals_session"] = code == 200 and got == {
+            "answer": want[0], "score": want[1], "nbest": [
+                {"answer": a, "score": sc} for a, sc in want.nbest]}
+
+        results = [None] * SERVE_REQUESTS
+        per = SERVE_REQUESTS // SERVE_THREADS
+
+        def caller(i):
+            for j in range(i * per, (i + 1) * per):
+                results[j] = http(base, "/v1/respond", bodies[j])
+
+        def concurrent():
+            threads = [threading.Thread(target=caller, args=(i,))
+                       for i in range(SERVE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        before = srv.async_server.launches
+        t0 = time.perf_counter()
+        counted(concurrent)
+        wall = time.perf_counter() - t0
+        stats = http(base, "/stats")[1]
+        out.update(
+            requests=SERVE_REQUESTS, threads=SERVE_THREADS,
+            answered=sum(r is not None and r[0] == 200
+                         and isinstance(r[1]["answer"], str)
+                         for r in results),
+            batch_launches=srv.async_server.launches - before,
+            wall_s=wall, requests_per_sec=SERVE_REQUESTS / wall,
+            stats_latency=stats["latency"])
+
+        vocab, _ = load_conf(corpus["prefix"])
+        words = [w for w in vocab if w.startswith("w")]
+        rng = np.random.default_rng(5)
+        cands = [" ".join(rng.choice(words, int(rng.integers(3, 12))))
+                 for _ in range(N_OPTIONS)]
+        code, ranked = counted(lambda: http(base, "/v1/rank", dict(
+            bodies[1], candidates=cands)))
+        logps = [c["logp"] for c in ranked["candidates"]]
+        ranks = sorted(c["rank"] for c in ranked["candidates"])
+        out["rank"] = dict(
+            candidates=len(logps), logp_range=[min(logps), max(logps)],
+            ok=code == 200 and len(logps) == N_OPTIONS
+            and all(math.isfinite(x) for x in logps)
+            and 1 <= ranks[0] and ranks[-1] <= N_OPTIONS)
+
+        text = counted(lambda: http(base, "/v1/stream", bodies[2])[1])
+        events = [json.loads(line[len("data: "):])
+                  for line in text.splitlines() if line.startswith("data: ")]
+        tokens = [e["token"] for e in events if "token" in e]
+        db = session.to_device(encode_requests(
+            [parse_request(bodies[2])], session.model_cfg, session.data_cfg,
+            session.vocab, session._lb, session._fb,
+            pad_rows_to=SERVE_TURN_BATCH))
+        greedy = [session.vlist[t]
+                  for t in session.decoder.greedy_batch(db)[0]]
+        out["stream"] = dict(tokens=len(tokens), equals_greedy=bool(
+            events and tokens == greedy and events[-1].get("done") is True
+            and events[-1]["answer"] == " ".join(tokens)))
+
+        code, reloaded = http(base, "/admin/reload", {})
+        code2, again = counted(lambda: http(base, "/v1/respond", one))
+        out["reload"] = dict(response=reloaded, same_answer=(
+            code == 200 and reloaded == {"ok": True, "epoch": 1}
+            and code2 == 200 and again == got))
+        metrics = http(base, "/metrics")[1]
+        out["metrics_lines"] = len(metrics.splitlines())
+    finally:
+        srv.close()
+    out["launches"], out["calls_by_shape"] = launches, calls
+    out["ok"] = bool(
+        out["respond_equals_session"] and out["answered"] == SERVE_REQUESTS
+        and out["batch_launches"] < SERVE_REQUESTS and out["rank"]["ok"]
+        and out["stream"]["equals_greedy"] and out["reload"]["same_answer"]
+        and "mtn_requests_total" in metrics)
+    del session, srv
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- training ---------------------------------------------------------------
@@ -1382,6 +1668,39 @@ def main() -> int:
         phase_s["sample, stream, rank, evaluate"] = time.time() - t_phase
         t_phase = time.time()
 
+        # int8 weights and features; serving over HTTP
+        int8 = int8_phase(torch, ak, fk, generate, corpus, root)
+        print(f"[int8] {json.dumps(int8)}")
+        if not all(int8[q]["filled"] for q in INT8_MODES):
+            return fail("int8: not every undisclosed answer was replaced")
+        if not all(int8[q]["launches"]["attention"] > 0
+                   and int8[q]["launches"]["ffn"] == 0 for q in INT8_MODES):
+            return fail("int8: attention must launch and the FFN kernel "
+                        f"never: {[int8[q]['launches'] for q in INT8_MODES]}")
+        if not int8["reference"]["max_abs_diff"] <= INT8_REF_TOL:
+            return fail("int8: the card disagrees with the CPU reference")
+        if not int8["transfer_bitwise"]:
+            return fail("int8: the int8-transfer batch on the card differs "
+                        "from the CPU's")
+        phase_s["int8"] = time.time() - t_phase
+        t_phase = time.time()
+        served = {}
+        for quant in ("", "int8-fp-head"):
+            served[quant] = serve_phase(torch, ak, fk, corpus, quant)
+            print(f"[serve] {json.dumps(served[quant])}")
+            if not served[quant]["ok"]:
+                return fail(f"serve ({quant or 'bf16'}): a check failed")
+        serve_launches = served[""]["launches"]
+        if min(serve_launches.values()) <= 0:
+            return fail("serve: a kernel never launched for the bf16 "
+                        f"session: {serve_launches}")
+        q8 = served["int8-fp-head"]["launches"]
+        if q8["attention"] <= 0 or q8["ffn"] != 0:
+            return fail("serve: under int8 attention must launch and the "
+                        f"FFN kernel never: {q8}")
+        phase_s["serve"] = time.time() - t_phase
+        t_phase = time.time()
+
         # stage 2: (a) run.sh's dropout, batch 32, remat and cut_a: the
         # kernels run only in validation, as in JAX; (b) dropout 0, batch
         # 8: both kernels run inside train steps too
@@ -1435,6 +1754,9 @@ def main() -> int:
                     launches=launches[name],
                     sample_launches=sample["launches"][name],
                     rank_launches=ranked["launches"][name],
+                    serve_launches=serve_launches[name],
+                    int8_launches=sum(int8[q]["launches"][name]
+                                      for q in INT8_MODES),
                     train_launches=train_launches[name],
                     max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],

@@ -42,7 +42,8 @@ def add_device_args(parser: argparse.ArgumentParser):
     parser.add_argument("--feature-transfer", default="",
                         choices=["", "bfloat16", "int8"],
                         help="host->device feature precision (default: the "
-                             "compute dtype; int8 is not ported)")
+                             "compute dtype; int8 ships int8 features and "
+                             "f32 row scales, dequantized on the device)")
     parser.add_argument("--length-bucket", default=32, type=int,
                         help="round text lengths up to this multiple")
     parser.add_argument("--feature-bucket", default=32, type=int,
@@ -67,14 +68,10 @@ def add_device_args(parser: argparse.ArgumentParser):
 def check_unported(args: argparse.Namespace) -> None:
     """Refuse flags whose paths the port does not run yet."""
     refused = []
-    if getattr(args, "weights_quant", ""):
-        refused.append("--weights-quant (ROADMAP: int8)")
     if getattr(args, "multihost", ""):
         refused.append("--multihost (ROADMAP: parallel)")
     if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
         refused.append("mesh sizes > 1 (ROADMAP: parallel)")
-    if args.feature_transfer == "int8":
-        refused.append("--feature-transfer int8 (ROADMAP: int8)")
     if args.profile_dir:
         refused.append("--profile-dir (ROADMAP: tools)")
     if args.nan_checks:

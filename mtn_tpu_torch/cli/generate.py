@@ -7,10 +7,12 @@
 
 Turns are grouped into length-sorted batches and beam-decoded (or greedy,
 or sampled: ``--decode-style sample`` with ``--temperature``, ``--top-k``,
-``--top-p`` and ``--sample-seed``) on one device; the result JSON has the
+``--top-p`` and ``--sample-seed``) on one device, with full-precision or
+(``--weights-quant``) int8 weights; the result JSON has the
 format of ``mtn_tpu.cli.generate`` and is scored by ``python -m
 mtn_tpu_torch.cli.evaluate`` (run.sh stage 4). The checkpoint is the
-port's format (``mtn_tpu_torch/weights.py``). A producer thread builds and
+port's format (``mtn_tpu_torch/weights.py``; a JAX checkpoint enters it
+through ``mtn_tpu_torch.utils.import_flax``). A producer thread builds and
 uploads the next batches while the device decodes.
 """
 
@@ -63,7 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "(output-identical; 0 runs all maxlen steps)")
     parser.add_argument("--weights-quant", default="", type=str,
                         choices=["", "int8", "int8-fp-head"],
-                        help="not ported")
+                        help="'int8': decode with weight-only int8 kernels "
+                             "(per-channel scales, mtn_tpu_torch/utils/"
+                             "quantize.py); 'int8-fp-head' keeps the vocab "
+                             "head full precision; default full precision")
     parser.add_argument("--multihost", default="", type=str,
                         help="not ported")
     parser.add_argument("--stats-output", default="", type=str,
@@ -231,6 +236,11 @@ def main(argv=None):
     state_dict, used_epoch = load_checkpoint(prefix, epoch)
     model = load_model(model_cfg, state_dict, device)
     log.info("Restored checkpoint epoch %s on %s", used_epoch, device)
+    if args.weights_quant:
+        from mtn_tpu_torch.utils.quantize import quantize_model
+        log.info("quantizing decode weights: %s", args.weights_quant)
+        quantize_model(model, state_dict,
+                       skip_generator=args.weights_quant == "int8-fp-head")
 
     decode_cfg = DecodeConfig(
         maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,

@@ -108,7 +108,14 @@ class PosEncoding(nn.Module):
 
 class ParamLinear(nn.Module):
     """``x @ kernel + bias`` with a (d_in, d_out) kernel in the compute
-    dtype (the float path of the JAX ``ParamLinear``)."""
+    dtype (the JAX ``ParamLinear``).
+
+    Also the weight-only int8 read path (``mtn_tpu_torch/utils/
+    quantize.py``): after :meth:`load_int8` the kernel is an int8 buffer
+    with a float32 per-output-channel ``kernel_scale`` buffer, and the
+    layer computes ``(x @ q) * scale + bias`` in the compute dtype, in
+    JAX's order (scaling after the product is not ``x @ (q * scale)``
+    in bf16)."""
 
     def __init__(self, d_in: int, features: int, dtype: torch.dtype):
         super().__init__()
@@ -116,8 +123,30 @@ class ParamLinear(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(d_in, features, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
 
+    @property
+    def is_int8(self) -> bool:
+        return self.kernel.dtype == torch.int8
+
+    def load_int8(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the float kernel by int8 ``q`` (d_in, d_out) and its
+        float32 ``scale`` (d_out,), on the layer's device."""
+        if q.dtype != torch.int8 or q.shape != self.kernel.shape \
+                or scale.shape != (q.shape[1],):
+            raise ValueError(f"load_int8: q {q.dtype} {tuple(q.shape)}, "
+                             f"scale {tuple(scale.shape)} for a kernel of "
+                             f"shape {tuple(self.kernel.shape)}")
+        device = self.bias.device
+        del self.kernel
+        self.register_buffer("kernel", q.to(device))
+        self.register_buffer("kernel_scale",
+                             scale.to(device, torch.float32))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel) + self.bias
+        x = x.to(self.dtype)
+        if self.is_int8:
+            y = torch.matmul(x, self.kernel.to(self.dtype))
+            return y * self.kernel_scale.to(self.dtype) + self.bias
+        return torch.matmul(x, self.kernel) + self.bias
 
 
 class MultiHeadAttention(nn.Module):
@@ -158,11 +187,16 @@ class MultiHeadAttention(nn.Module):
         return self._split(self.w_k(kv_in)), self._split(self.w_v(kv_in))
 
     def fused_qkv(self, x: torch.Tensor):
-        """q/k/v projections of one input as one (D, 3D) product."""
+        """q/k/v projections of one input as one (D, 3D) product; int8
+        kernels concatenate their scales as they concatenate."""
         mods = (self.w_q, self.w_k, self.w_v)
-        kernel = torch.cat([m.kernel for m in mods], dim=1)
+        kernel = torch.cat([m.kernel for m in mods], dim=1).to(self.dtype)
         bias = torch.cat([m.bias for m in mods])
-        qkv = torch.matmul(x.to(self.dtype), kernel) + bias
+        qkv = torch.matmul(x.to(self.dtype), kernel)
+        if mods[0].is_int8:
+            qkv = qkv * torch.cat([m.kernel_scale for m in mods]).to(
+                self.dtype)
+        qkv = qkv + bias
         q, k, v = torch.split(qkv, self.d_model, dim=-1)
         return self._split(q), self._split(k), self._split(v)
 
@@ -182,8 +216,9 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> dropout -> Linear; with ``use_kernel`` and no
-    active dropout, the fused FFN (kernel inside its gate)."""
+    """Linear -> ReLU -> dropout -> Linear; with ``use_kernel``, no
+    active dropout and float weights, the fused FFN (kernel inside its
+    gate). int8 weights take the two int8 linears, as in JAX."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float,
                  dtype: torch.dtype, use_kernel: bool = False):
@@ -195,7 +230,8 @@ class FeedForward(nn.Module):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_kernel and (not self.training or self.dropout == 0.0):
+        if self.use_kernel and (not self.training or self.dropout == 0.0) \
+                and not self.w_1.is_int8:
             dt = self.w_1.dtype
             return fused_ffn(x.to(dt), self.w_1.kernel, self.w_1.bias,
                              self.w_2.kernel, self.w_2.bias)

@@ -14,7 +14,9 @@ Checkpoint format (written by :func:`save_checkpoint`, read by
 - ``<prefix>_torch/meta.json``: ``{"epochs": [...], "best_epoch": e}``.
 
 A JAX checkpoint reaches the port by dumping its params to a ``.npz``
-(a JAX-side step) and :func:`from_flax` on the loaded tree; its optax
+(``scripts/dump_flax_params.py``, the JAX side) and ``python -m
+mtn_tpu_torch.utils.import_flax``, which checks every key and shape and
+writes ``<prefix>_torch/`` beside the JAX checkpoint's sidecars; its optax
 Adam state, dumped the same way, by :func:`opt_state_from_optax`. The
 training checkpoints (optimiser state, the mid-epoch slot) are
 ``mtn_tpu_torch.utils.checkpoint``'s, beside the same params files.
@@ -198,16 +200,23 @@ def save_checkpoint(prefix: str, epoch: int,
     return path
 
 
+def resolve_epoch(prefix: str, epoch: Union[int, str]) -> Optional[int]:
+    """The epoch number "best" or "latest" names under ``prefix`` (None
+    when there is none); a number is returned as it is."""
+    meta = _meta(prefix)
+    if epoch == "best":
+        return meta.get("best_epoch")
+    if epoch == "latest":
+        epochs = meta.get("epochs", [])
+        return epochs[-1] if epochs else None
+    return epoch
+
+
 def load_checkpoint(prefix: str, epoch: Union[int, str] = "best"
                     ) -> Tuple[StateDict, int]:
     """Returns (state_dict, epoch); ``epoch`` is a number, "best" or
     "latest"."""
-    meta = _meta(prefix)
-    if epoch == "best":
-        epoch = meta.get("best_epoch")
-    elif epoch == "latest":
-        epochs = meta.get("epochs", [])
-        epoch = epochs[-1] if epochs else None
+    epoch = resolve_epoch(prefix, epoch)
     if epoch is None:
         raise FileNotFoundError(f"no checkpoint under {_ckpt_dir(prefix)}")
     path = os.path.join(_ckpt_dir(prefix), f"epoch_{epoch}.pt")

@@ -128,14 +128,43 @@ def test_cli_end_to_end_on_port_checkpoint(setup, tmp_path):
     assert _answers(plain) == answers
 
 
-@pytest.mark.parametrize("flag", [["--weights-quant", "int8"],
+@pytest.mark.parametrize("flag", [["--nan-checks", "1"],
                                   ["--profile-dir", "prof"],
-                                  ["--feature-transfer", "int8"],
+                                  ["--mesh-model", "2"],
                                   ["--mesh-data", "2"],
                                   ["--multihost", "auto"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8-fp-head"])
+def test_cli_int8_weights_and_features(setup, tmp_path, quant):
+    """--weights-quant and --feature-transfer int8 decode what the
+    quantized model decodes on int8-transferred features."""
+    from mtn_tpu_torch.utils.quantize import quantize_model
+    c, vocab, cfg, params = setup
+    prefix = str(tmp_path / "mtn")
+    save_conf(prefix, vocab, model=cfg,
+              data=JDataConfig(fea_type=list(c.fea_types), **DATA))
+    save_checkpoint(prefix, 1, from_flax(params))
+    out = tmp_path / "result.json"
+    assert main(["--model", prefix + "_best", "--device", "cpu",
+                 "--dtype", "float32", "--test-path", c.fea_path,
+                 "--test-set", c.test_set, "--decode-style", "beam_search",
+                 "--beam", "3", "--nbest", "3", "--penalty", "1.0",
+                 "--maxlen", "10", "--turn-batch", "4",
+                 "--undisclosed-only", "1", "--weights-quant", quant,
+                 "--feature-transfer", "int8", "--output", str(out)]) == 0
+    data = load(c.fea_types, c.fea_path, c.test_set, vocab,
+                include_caption="caption,summary", separate_caption=True,
+                undisclosed_only=True)
+    model = quantize_model(port_model(cfg, params), from_flax(params),
+                           skip_generator=quant == "int8-fp-head")
+    want, _ = generate_responses(model, data, DecodeConfig(**DECODE),
+                                 DataConfig(**DATA), vocab, "cpu",
+                                 feature_dtype="int8", log_hyps=False)
+    assert _answers(json.loads(out.read_text())) == _answers(want)
 
 
 def test_cli_needs_a_gpu_unless_told_cpu():

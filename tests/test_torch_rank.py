@@ -130,6 +130,43 @@ def test_cli_rank_matches_jax_rank_dataset(tiny_corpus, tmp_path, capsys):
             assert turn["gt_rank"] == want_rank
 
 
+def test_cli_rank_int8_feature_transfer_matches_jax(tiny_corpus, tmp_path):
+    """``--feature-transfer int8``: the int8 wire into the same rank scores
+    as JAX's rank_dataset with ``feature_transfer="int8"``."""
+    c = tiny_corpus
+    vocab = get_vocabulary(c.train_set, 0, "caption,summary")
+    cfg = tiny_model_cfg(len(vocab), c.ft_dims, dropout=0.0)
+    params = seeded_params(cfg, seed=3, gen_scale=3.0)
+    build = runpy.run_path(os.path.join(
+        REPO, "scripts", "make_rank_candidates.py"))["build_candidates"]
+    with open(c.lbl_test_set) as f:
+        cands = build(json.load(f), num_options=4, seed=2, last_only=True)
+    cand_path = tmp_path / "cands.json"
+    cand_path.write_text(json.dumps(cands))
+    prefix = str(tmp_path / "mtn")
+    save_conf(prefix, vocab, model=cfg,
+              data=JDataConfig(fea_type=list(c.fea_types), **DATA))
+    save_checkpoint(prefix, 1, from_flax(params))
+    out = tmp_path / "ranks.json"
+    assert main(["--model", prefix + "_best", "--device", "cpu",
+                 "--dtype", "float32", "--test-path", c.fea_path,
+                 "--test-set", c.test_set, "--candidates", str(cand_path),
+                 "--undisclosed-only", "1", "--turn-batch", "2",
+                 "--feature-transfer", "int8", "--output", str(out)]) == 0
+    turns = [t for d in json.loads(out.read_text())["dialogs"]
+             for t in d["dialog"]]
+    jdata = jax_load(c.fea_types, c.fea_path, c.test_set, vocab,
+                     include_caption="caption,summary",
+                     separate_caption=True, undisclosed_only=True)
+    want, _, n = jax_rank_dataset(params, cfg, jdata,
+                                  jax_align(jdata, cands, True),
+                                  JDataConfig(**DATA), vocab, turn_batch=2,
+                                  feature_transfer="int8")
+    assert n == len(turns)
+    for turn, w in zip(turns, want):
+        np.testing.assert_allclose(turn["scores"], w, rtol=0, atol=TOL)
+
+
 def test_cli_rank_refuses_multihost_and_bad_candidates(tiny_corpus,
                                                        tmp_path):
     from mtn_tpu_torch.cli.rank import _align_candidates

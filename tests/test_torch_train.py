@@ -398,6 +398,18 @@ def test_cli_train_accumulation_and_clipping(tiny_corpus, tmp_path):
                                   "2"))
 
 
+def test_cli_train_int8_feature_transfer(tiny_corpus, tmp_path):
+    """--feature-transfer int8 trains on int8-transferred features and
+    records the transfer in the config sidecar."""
+    prefix = str(tmp_path / "mtn")
+    assert train_cli.main(train_argv(
+        tiny_corpus, prefix, "--num-epochs", "1",
+        "--feature-transfer", "int8")) == 0
+    assert json.load(open(prefix + "_torch/meta.json"))["epochs"] == [1]
+    conf = json.load(open(prefix + ".conf.json"))
+    assert conf["data"]["feature_dtype"] == "int8"
+
+
 def test_cli_train_has_the_jax_flags():
     """Every flag of mtn_tpu.cli.train, with its default, plus --device."""
     from mtn_tpu.cli.train import build_parser as jax_parser
@@ -414,7 +426,8 @@ def test_cli_train_has_the_jax_flags():
                                   ["--multihost", "auto"],
                                   ["--mesh-data", "2"],
                                   ["--mesh-model", "2"],
-                                  ["--feature-transfer", "int8"],
+                                  ["--feature-transfer", "int8",
+                                   "--feature-cache", "cache"],
                                   ["--profile-dir", "prof"],
                                   ["--nan-checks", "1"]])
 def test_cli_train_refuses_unported_flags(flag):
