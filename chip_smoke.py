@@ -9,7 +9,9 @@
 3. holds each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the shapes of the beam-decode path, of the sample, rank and
    serving paths (the FFN at 32, 64, 80 and 200 rows, attention at 2 and
-   16 turns) and outside its gate (the FFN also at 16, 161 and 256 rows;
+   16 turns), of the batched_ae precompute (attention at B64 = 2 streams
+   × 32 turns, Lk 32, and Lk 64 with the shorter stream's padded keys
+   masked) and outside its gate (the FFN also at 16, 161 and 256 rows;
    bf16 attention also at
    the edges of its design: Lq 20, Lk 61, Lk 130 and 2048 (two passes over
    key chunks), D 33, 40, 128 and 256, fully masked rows at Lk 61, 130 and
@@ -81,7 +83,25 @@
     shape that step launched it at, beside the plain version's and SDPA's,
     and forward plus backward per call through the wrapper (nested
     autograd), through plain autograd, and (attention) with the backward
-    written out.
+    written out;
+11. ``[batched-ae]``: ``cli.generate`` beam decode of the seeded flagship
+    under a ``batched_ae`` sidecar, counted by kernel and shape
+    (attention only at B64, the FFN kernel only at the decode step's 160
+    rows), the f32 model on the card against the CPU within 1e-3 (two
+    turns: no 64-row AE FFN launch, attention at B4), and one bf16
+    batch-8 train step against the sequential chain's on the same
+    weights (loss within 1e-3 relative; 12 fewer attention and FFN
+    launches), with ``[batched-ae-kernel]`` times at its B16 shapes;
+12. ``[data]``: the flagship turn batch built by numpy, by the C++ loader
+    (``features.native_in_use()`` must be true) and through the feature
+    cache (fill, then hits) in f32, bf16 and int8, all bitwise equal on
+    the card, with host ms per batch by route;
+13. ``[tools]``: ``cli.train`` at 2 blocks and full widths with
+    ``--profile-dir --nan-checks 1 --async-save 1 --feature-cache``
+    against a blocking-save run (bitwise equal checkpoints, the trace
+    written), then ``python -m mtn_tpu_torch.utils.average`` on the card
+    (its mean bitwise the CPU's) and ``cli.generate`` on the averaged
+    family.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it. Its last line is ``{"ok": true, "device": ...}``.
@@ -216,6 +236,9 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((2, 8, 32, 64, 64), "keys"),
         ((16, 8, 32, 32, 64), "keys"),   # the same at serving's 16 turns
         ((16, 8, 32, 64, 64), "keys"),
+        ((64, 8, 32, 32, 64), "keys"),   # batched_ae: 2 streams x 32 turns
+        ((64, 8, 32, 64, 64), "padded"),  # ... AE->video, keys 32-63 of
+        #                                   the VGGish half padded
         ((160, 8, 1, 30, 64), "keys"),   # Lq = 1, outside the gate
         ((4, 8, 32, 64, 64), "empty"),   # a fully masked row
         ((4, 8, 32, 64, 64), "full"),    # a (B, 1, Lq, Lk) mask
@@ -250,6 +273,8 @@ def attention_cases(torch, ak, dtype_name: str, gen):
             mask[:, :, :, 0] = True
             if kind == "empty":
                 mask[0] = False
+            if kind == "padded":  # the stacked second stream's padding
+                mask[B // 2:, :, :, Lk // 2:] = False
             mask = mask.to(dev)
         got = ak.attention(q, k, v, mask)
         again = ak.attention(q, k, v, mask)
@@ -1163,6 +1188,280 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
 
 
 # -- training ---------------------------------------------------------------
+# -- batched_ae, the data path, the training tools ---------------------------
+BATCHED_REF_TOL = 1e-3   # card (kernels) vs CPU (plain), f32, as [reference]
+BATCHED_LOSS_TOL = 1e-3  # bf16 step: batched vs sequential loss, relative
+TOOLS_BLOCKS = 2
+
+
+def batched_prefix(corpus: dict, root: str) -> str:
+    """The corpus's seeded checkpoint under a sidecar with batched_ae."""
+    from mtn_tpu_torch.weights import (load_checkpoint, load_conf,
+                                       save_checkpoint, save_conf)
+    vocab, conf = load_conf(corpus["prefix"])
+    conf["model"]["batched_ae"] = True
+    prefix = os.path.join(root, "batched", "mtn")
+    os.makedirs(os.path.dirname(prefix))
+    save_conf(prefix, vocab, **conf)
+    save_checkpoint(prefix, 1, load_checkpoint(corpus["prefix"])[0])
+    return prefix
+
+
+def attention_rows(torch, ak, seen) -> list:
+    """Device µs per call of the attention kernel at every shape in
+    ``seen`` (``record_launches``), beside the plain version's, SDPA's and
+    the bound."""
+    import torch.nn.functional as F
+    rows = []
+    for key, rec in seen.items():
+        if key[0] != "attention":
+            continue
+        q, k, v, mask = rec["args"]
+        B, H, Lq, D = q.shape
+        row = dict(kernel="attention", shape=[B, H, Lq, k.shape[2], D],
+                   dtype=str(q.dtype).split(".")[-1],
+                   mask=None if mask is None else list(mask.shape),
+                   calls=rec["calls"])
+        row["device_us"] = device_us(lambda: ak.launch(q, k, v, mask))
+        row["plain_device_us"] = device_us(
+            lambda: ak.attention_plain(q, k, v, mask))
+        row["library_device_us"] = device_us(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        bound, row["bound_by"] = bound_ms(
+            nbytes(q, k, v, q, mask), 4 * B * H * Lq * k.shape[2] * D,
+            row["dtype"])
+        row["bound_us"] = bound * 1e3
+        rows.append(row)
+    return rows
+
+
+def batched_train_step(torch, ak, fk, corpus: dict) -> dict:
+    """One bf16 batch-8 train step (dropout 0, both kernels) of the seeded
+    flagship with batched_ae, against the sequential chain's step on the
+    same weights and batch: the losses, the launches by shape, and the
+    attention kernel's times at the batched step's shapes."""
+    from mtn_tpu_torch.config import TrainConfig, config_from_dict
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.train.trainer import Trainer
+    from mtn_tpu_torch.weights import load_checkpoint
+
+    conf, hb = train_batch(corpus, corpus["prefix"], 8)
+    sd, _ = load_checkpoint(corpus["prefix"])
+    db = device_batch(hb, "cuda", "bfloat16")
+    out = {}
+    for name, batched in (("sequential", False), ("batched", True)):
+        cfg = config_from_dict("model", conf["model"])
+        cfg.dtype = "bfloat16"
+        cfg.dropout = cfg.attn_dropout = 0.0
+        cfg.remat = False
+        cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+        cfg.batched_ae = batched
+        tr = Trainer(cfg, TrainConfig(warmup_steps=WARMUP), "cuda")
+        state = tr.state_from(sd)
+        (_, metrics), launches, calls = run_path(
+            torch, ak, fk, lambda: tr.train_step(state, db, 0))
+        out[name] = dict(loss=metrics["loss"].item(), launches=launches,
+                         calls=calls)
+        S, layers = len(cfg.ft_sizes), cfg.nb_blocks
+        if batched:
+            seen = record_launches(ak, fk,
+                                   lambda: tr.train_step(state, db, 0))
+            out["kernel_rows"] = attention_rows(torch, ak, seen)
+        del tr, state
+        torch.cuda.empty_cache()
+    seq, bat = out["sequential"], out["batched"]
+    out["loss_rel_diff"] = abs(seq["loss"] - bat["loss"]) / abs(seq["loss"])
+    # per layer the stack saves S - 1 launches of each AE attention and
+    # every AE FFN launch (8 turns × 32 query rows: inside the FFN gate)
+    out["ok"] = (math.isfinite(bat["loss"])
+                 and out["loss_rel_diff"] <= BATCHED_LOSS_TOL
+                 and bat["launches"]["attention"]
+                 == seq["launches"]["attention"] - 2 * layers * (S - 1)
+                 and bat["launches"]["ffn"]
+                 == seq["launches"]["ffn"] - layers * S
+                 and any(k.startswith("attention B16 ") for k in bat["calls"]))
+    return out
+
+
+def batched_ae_phase(torch, ak, fk, generate, corpus: dict,
+                     root: str) -> dict:
+    """The main path with a batched_ae sidecar: ``cli.generate`` beam
+    decode at the flagship width (both kernels), counted by kernel and
+    shape (the stacked precompute attends at 2 streams × 32 turns = B64;
+    the decoder FFN runs at 160 rows and the stacked AE FFN never
+    reaches the kernel); the f32 model on the card against the CPU on two
+    turns, where the sequential chain's 64-row AE FFN would launch the
+    kernel and the stacked one must not; and one bf16 train step against
+    the sequential step."""
+    prefix = batched_prefix(corpus, root)
+    out_path = os.path.join(root, "batched.json")
+    rc, launches, calls = run_path(torch, ak, fk, lambda: generate.main(
+        generate_argv(corpus, prefix, out_path, *BEAM_FLAGS)))
+    answers = answers_of(out_path)
+    diff, ref_launches, ref_calls = run_path(
+        torch, ak, fk, lambda: reference_check(
+            torch, prefix, corpus["test_set"], corpus["fea_path"]))
+    step = batched_train_step(torch, ak, fk, corpus)
+    ffn_rows = sorted({int(k.split("N")[1]) for k in calls
+                       if k.startswith("ffn")})
+    att_batches = sorted({int(k.split()[1][1:]) for k in calls
+                          if k.startswith("attention")})
+    out = dict(filled=rc == 0 and len(answers) == N_DIALOGS
+               and "__UNDISCLOSED__" not in answers,
+               launches=launches, calls=calls,
+               reference=dict(max_abs_diff=diff, tol=BATCHED_REF_TOL,
+                              calls=ref_calls),
+               train_step=step)
+    out["ok"] = (out["filled"] and att_batches == [64]
+                 and ffn_rows == [160] and diff <= BATCHED_REF_TOL
+                 and "ffn N64" not in ref_calls
+                 and "attention B4 Lq32 Lk32" in ref_calls
+                 and step["ok"])
+    return out
+
+
+def data_phase(torch, corpus: dict, root: str) -> dict:
+    """The host's batch build at the flagship batch (32 turns, I3D
+    2048 × 64 frames, VGGish 128 × 32) over the test set's six turn
+    batches, by route: numpy, the C++ loader, and the feature cache at
+    each transfer (filling, then hits). Every route's batches reach the
+    card bitwise equal to numpy's at the same transfer. Host ms per batch
+    is ``make_batch``'s wall time (the files sit in the page cache after
+    the first pass: the reads are from memory); ``upload_ms`` is
+    ``device_batch`` to the card."""
+    from mtn_tpu_torch.data import features
+    from mtn_tpu_torch.data.batching import make_batch, make_batch_indices
+    from mtn_tpu_torch.data.dataset import load
+    from mtn_tpu_torch.data.feature_cache import FeatureCache
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_conf
+
+    vocab, _ = load_conf(corpus["prefix"])
+    data = load(corpus["fea_types"], corpus["fea_path"],
+                corpus["test_set"], vocab,
+                include_caption="caption,summary", separate_caption=True)
+    plans, _ = make_batch_indices(data, 32, max_length=10 ** 9,
+                                  separate_caption=True)
+    kw = dict(separate_caption=True, length_bucket=32, feature_bucket=32,
+              pad_rows_to=32)
+
+    def build(**extra):
+        t0 = time.perf_counter()
+        hbs = [make_batch(data, p, **kw, **extra) for p in plans]
+        return hbs, (time.perf_counter() - t0) * 1e3 / len(plans)
+    build(use_native_loader=False)        # the page cache, warm
+    numpy_hbs, numpy_ms = build(use_native_loader=False)
+    native_hbs, native_ms = build()
+    shapes = [list(f.shape) for f in numpy_hbs[0].fts]
+    routes = {"numpy": {"host_ms_per_batch": numpy_ms},
+              "native": {"host_ms_per_batch": native_ms}}
+    equal = True
+    for transfer in ("float32", "bfloat16", "int8"):
+        def upload(hbs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dbs = [device_batch(hb, "cuda", transfer) for hb in hbs]
+            torch.cuda.synchronize()
+            return dbs, (time.perf_counter() - t0) * 1e3 / len(hbs)
+        want, upload_ms = upload(numpy_hbs)
+        routes["numpy"][f"upload_ms_{transfer}"] = upload_ms
+        cache = FeatureCache(os.path.join(root, "fcache", transfer),
+                             transfer)
+        runs = {"native": native_hbs}
+        runs[f"cache_fill_{transfer}"], fill_ms = build(
+            feature_cache=cache)
+        runs[f"cache_hit_{transfer}"], hit_ms = build(feature_cache=cache)
+        routes[f"cache_fill_{transfer}"] = {"host_ms_per_batch": fill_ms}
+        routes[f"cache_hit_{transfer}"] = {
+            "host_ms_per_batch": hit_ms, "hits": cache.hits,
+            "misses": cache.misses}
+        for name, hbs in runs.items():
+            got, ms = upload(hbs)
+            routes[name][f"upload_ms_{transfer}"] = ms
+            same = all(torch.equal(a, b) for da, db in zip(want, got)
+                       for a, b in zip(da.fts + da.fts_len,
+                                       db.fts + db.fts_len))
+            routes[name][f"bitwise_{transfer}"] = same
+            equal = equal and same
+    return dict(batches=len(plans), feature_shapes=shapes,
+                native_in_use=features.native_in_use(), routes=routes,
+                bitwise=equal, ok=equal and features.native_in_use())
+
+
+def tools_phase(torch, generate, corpus: dict, root: str) -> dict:
+    """``cli.train`` on the card at the flagship widths and 2 blocks, two
+    epochs of one 48-turn batch (the valid set): run (t) with ``--profile-dir
+    --nan-checks 1 --async-save 1 --feature-cache``, run (s) the same with
+    blocking saves and no profiler (the cache now warm). Both checkpoint
+    directories must be bitwise equal and the trace must exist; then
+    ``python -m mtn_tpu_torch.utils.average`` averages (t)'s two epochs on
+    the card, bitwise equal to the same mean on the CPU, and
+    ``cli.generate`` beam-decodes the averaged family."""
+    from mtn_tpu_torch.cli import train as train_cli
+    from mtn_tpu_torch.utils import average
+    from mtn_tpu_torch.utils.profiling import TRACE_STEPS
+    from mtn_tpu_torch.weights import load_checkpoint
+    base = os.path.join(root, "tools")
+    cache, prof = os.path.join(base, "cache"), os.path.join(base, "prof")
+    common = ("--nb-blocks", str(TOOLS_BLOCKS), "--train-set",
+              corpus["valid_set"], "--batch-size", "48",
+              "--keep-checkpoints", "0", "--nan-checks", "1",
+              "--feature-cache", cache)
+    runs, walls = {}, {}
+    for name, extra in (("t", ("--profile-dir", prof, "--async-save", "1")),
+                        ("s", ())):
+        prefix = os.path.join(base, name, "mtn")
+        t0 = time.time()
+        rc = train_cli.main(train_argv(corpus, prefix, *common, *extra))
+        walls[name] = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"tools run ({name}): exit code {rc}")
+        runs[name] = prefix
+    files = {n: sorted(os.listdir(p + "_torch")) for n, p in runs.items()}
+
+    def same(name):
+        with open(os.path.join(runs["t"] + "_torch", name), "rb") as a, \
+                open(os.path.join(runs["s"] + "_torch", name), "rb") as b:
+            return a.read() == b.read()
+    bitwise = files["t"] == files["s"] and all(same(f) for f in files["t"])
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)] \
+        if os.path.isdir(prof) else []
+    avg = os.path.join(base, "avg", "mtn")
+    t0 = time.time()
+    avg_rc = subprocess.run(
+        [sys.executable, "-m", "mtn_tpu_torch.utils.average", "--model",
+         runs["t"], "--epochs", "last2", "--out", avg], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+        text=True, timeout=600).returncode
+    out_path = os.path.join(base, "avg.json")
+    gen_rc = generate.main(generate_argv(corpus, avg, out_path,
+                                         *BEAM_FLAGS))
+    answers = answers_of(out_path) if gen_rc == 0 else []
+    avg_s = time.time() - t0
+    # the card's mean (the subprocess, on cuda by default) against the
+    # CPU's: the same f32 sums and division, so bitwise
+    avg_cpu = os.path.join(base, "avg_cpu", "mtn")
+    average.average_checkpoints(runs["t"], ["last2"], avg_cpu, "cpu")
+    card_mean = load_checkpoint(avg, "best")[0] if avg_rc == 0 else {}
+    cpu_mean = load_checkpoint(avg_cpu, "best")[0]
+    average_bitwise = card_mean.keys() == cpu_mean.keys() and all(
+        torch.equal(card_mean[k], cpu_mean[k]) for k in cpu_mean)
+    out = dict(blocks=TOOLS_BLOCKS, files=files["t"], bitwise=bitwise,
+               trace_bytes=[os.path.getsize(t) for t in traces],
+               trace_steps=TRACE_STEPS,
+               cache_entries=len(os.listdir(cache)), wall_s=walls,
+               average_rc=avg_rc, average_and_decode_s=avg_s,
+               average_card_equals_cpu=average_bitwise,
+               averaged_answers=len(answers),
+               averaged_example=answers[0] if answers else None)
+    out["ok"] = (bitwise and len(traces) == 1 and avg_rc == 0
+                 and average_bitwise
+                 and len(answers) == N_DIALOGS
+                 and "__UNDISCLOSED__" not in answers
+                 and out["cache_entries"] > 0)
+    return out
+
+
 def train_argv(corpus: dict, prefix: str, *extra):
     """``mtn_tpu_torch.cli.train`` flags for ``corpus`` at the flagship
     width (two epochs, bf16, both kernels, run.sh's max length), then
@@ -1553,7 +1852,8 @@ def main() -> int:
 
     phase_s = {}
     t_phase = t0 = time.time()
-    logs = _build.build_all([ak.KERNEL, fk.KERNEL])
+    from mtn_tpu_torch.data import native_loader
+    logs = _build.build_all([ak.KERNEL, fk.KERNEL, native_loader.LIBRARY])
     print(f"[build] {time.time() - t0:.1f}s")
     for log in logs:
         for line in log.splitlines():
@@ -1701,6 +2001,27 @@ def main() -> int:
         phase_s["serve"] = time.time() - t_phase
         t_phase = time.time()
 
+        # batched_ae, the host's data path, the training tools
+        batched = batched_ae_phase(torch, ak, fk, generate, corpus, root)
+        for r in batched["train_step"].pop("kernel_rows"):
+            print("[batched-ae-kernel] " + json.dumps(r))
+        print(f"[batched-ae] {json.dumps(batched)}")
+        if not batched["ok"]:
+            return fail("batched_ae: a check failed")
+        phase_s["batched-ae"] = time.time() - t_phase
+        t_phase = time.time()
+        data = data_phase(torch, corpus, root)
+        print(f"[data] {json.dumps(data)}")
+        if not data["ok"]:
+            return fail("data: a route differs or the C++ loader is not in "
+                        "use")
+        tools = tools_phase(torch, generate, corpus, root)
+        print(f"[tools] {json.dumps(tools)}")
+        if not tools["ok"]:
+            return fail("tools: a check failed")
+        phase_s["data, tools"] = time.time() - t_phase
+        t_phase = time.time()
+
         # stage 2: (a) run.sh's dropout, batch 32, remat and cut_a: the
         # kernels run only in validation, as in JAX; (b) dropout 0, batch
         # 8: both kernels run inside train steps too
@@ -1758,6 +2079,7 @@ def main() -> int:
                     int8_launches=sum(int8[q]["launches"][name]
                                       for q in INT8_MODES),
                     train_launches=train_launches[name],
+                    batched_ae_launches=batched["launches"][name],
                     max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -1,6 +1,6 @@
 """Shared CLI plumbing: the flag surface of ``mtn_tpu/cli/common.py`` plus
 ``--device``, and the refusal of flags whose paths are not ported yet
-(each names its ROADMAP item)."""
+(each names its ROADMAP item): the multi-device ones."""
 
 from __future__ import annotations
 
@@ -60,9 +60,12 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="fuse decode-time self-attention q/k/v into "
                              "one (D, 3D) product")
     parser.add_argument("--profile-dir", default=None, type=str,
-                        help="not ported")
+                        help="torch.profiler trace output directory (the "
+                             "train CLI traces; the decode CLIs accept and "
+                             "ignore it, as in mtn_tpu)")
     parser.add_argument("--nan-checks", default=0, type=int,
-                        help="not ported")
+                        help="raise on a non-finite loss or gradient (one "
+                             "host sync per train step)")
 
 
 def check_unported(args: argparse.Namespace) -> None:
@@ -72,16 +75,6 @@ def check_unported(args: argparse.Namespace) -> None:
         refused.append("--multihost (ROADMAP: parallel)")
     if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
         refused.append("mesh sizes > 1 (ROADMAP: parallel)")
-    if args.profile_dir:
-        refused.append("--profile-dir (ROADMAP: tools)")
-    if args.nan_checks:
-        refused.append("--nan-checks (ROADMAP: tools)")
-    if getattr(args, "batched_ae", 0):
-        refused.append("--batched-ae 1 (ROADMAP: batched_ae)")
-    if getattr(args, "feature_cache", ""):
-        refused.append("--feature-cache (ROADMAP: feature cache)")
-    if getattr(args, "async_save", 0):
-        refused.append("--async-save 1 (ROADMAP: tools)")
     if refused:
         raise NotImplementedError("not ported to mtn_tpu_torch yet: "
                                   + ", ".join(refused))

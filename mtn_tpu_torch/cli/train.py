@@ -11,8 +11,13 @@ Same flags as the JAX CLI, plus ``--device`` (default ``cuda``; without a
 GPU it raises unless ``--device cpu`` is given). Each epoch trains over
 the shuffled batches, validates, and saves a checkpoint that
 ``python -m mtn_tpu_torch.cli.generate`` decodes; the logs are the JAX
-CLI's CSV files and lines. Flags whose paths are not ported raise
-``NotImplementedError`` naming the ROADMAP item.
+CLI's CSV files and lines. ``--feature-cache DIR`` serves each batch's
+feature blocks from a write-once cache after their first read,
+``--async-save 1`` writes checkpoints on a background thread,
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run and
+``--nan-checks 1`` raises at the first step whose loss or gradients are
+not finite. The multi-device flags raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -79,14 +84,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="also save a rotating step checkpoint every N "
                              "train steps (resume with --resume step)")
     parser.add_argument("--feature-cache", default="", type=str,
-                        help="not ported")
+                        help="directory of a write-once cache of padded "
+                             "feature blocks in the transfer dtype "
+                             "(epoch 1 fills it, later epochs read it)")
     parser.add_argument("--async-save", default=0, type=int,
-                        help="not ported (saves are synchronous)")
+                        help="write checkpoints on a background thread; "
+                             "the meta commit waits for the next "
+                             "checkpoint operation or the end of the run")
     parser.add_argument("--remat", default=0, type=int,
                         help="recompute decoder layers in the backward "
                              "(torch.utils.checkpoint)")
     parser.add_argument("--batched-ae", default=0, type=int,
-                        help="not ported")
+                        help="run the per-stream AE chains as one stacked "
+                             "chain (same parameters and checkpoints)")
     parser.add_argument("--accum-steps", default=1, type=int,
                         help="gradient accumulation: one optimizer update "
                              "per N batches (requires --uniform-shapes 1)")
@@ -122,6 +132,7 @@ def main(argv=None):
     from mtn_tpu_torch.data.vocab import get_vocabulary
     from mtn_tpu_torch.train.batch import accumulated, device_batch
     from mtn_tpu_torch.train.trainer import EarlyStopper, Trainer
+    from mtn_tpu_torch.utils import profiling
     from mtn_tpu_torch.utils.checkpoint import CheckpointManager
     from mtn_tpu_torch.utils.logging import TraceLogger, dump_params_txt
 
@@ -191,6 +202,13 @@ def main(argv=None):
         vocab_cutoff=args.vocab_cutoff, length_bucket=args.length_bucket,
         feature_bucket=args.feature_bucket, prefetch=args.prefetch,
         feature_dtype=args.feature_transfer or args.dtype)
+    feature_cache = None
+    if args.feature_cache:
+        from mtn_tpu_torch.data.feature_cache import FeatureCache
+        feature_cache = FeatureCache(args.feature_cache,
+                                     transfer=data_cfg.feature_dtype)
+        log.info("feature cache: %s (transfer %s)", args.feature_cache,
+                 data_cfg.feature_dtype)
     if args.accum_steps > 1 and not args.uniform_shapes:
         raise SystemExit("--accum-steps > 1 requires --uniform-shapes 1 "
                          "(as in mtn_tpu, whose accumulation groups stack "
@@ -208,9 +226,10 @@ def main(argv=None):
         accum_steps=args.accum_steps, grad_clip=args.grad_clip,
         patience=args.patience)
 
-    trainer = Trainer(model_cfg, train_cfg, device)
+    trainer = Trainer(model_cfg, train_cfg, device,
+                      nan_checks=bool(args.nan_checks))
     os.makedirs(os.path.dirname(args.model) or ".", exist_ok=True)
-    ckpt = CheckpointManager(args.model)
+    ckpt = CheckpointManager(args.model, async_save=bool(args.async_save))
     ckpt.save_conf(vocab, model=model_cfg, data=data_cfg, train=train_cfg)
     dump_params_txt(args.model + "_params.txt", vars(args))
     logs = TraceLogger(args.model, resume=bool(args.resume))
@@ -246,52 +265,55 @@ def main(argv=None):
             min_valid_loss = stopper.best
             bestmodel_num = int(ckpt.meta().get("best_epoch") or 0)
     base_seed = args.rand_seed + 1
-    for epoch in range(start_epoch, args.num_epochs):
-        # the shuffle and the cut_a draws are keyed by (seed, epoch[,
-        # batch]), so a --resume step run skips the consumed prefix and
-        # repeats an uninterrupted run
-        plans_ep = shuffled(train_plans,
-                            np.random.default_rng([args.rand_seed, epoch]))
-        start_b = resume_batch if epoch == start_epoch else 0
-        it = BatchIterator(train_data, plans_ep[start_b:], data_cfg,
-                           train=True, seed_key=(args.rand_seed, epoch),
-                           start=start_b, transform=to_device)
-        accum = args.accum_steps
-        if accum > 1:
-            it = accumulated(it, accum, pad=trainer.pad)
-        # logged step/batch indices stay in batch units under accumulation
-        state, train_loss = trainer.run_epoch(
-            state, it, base_seed, train=True,
-            report_fn=lambda step, loss, tps, s0=start_b, a=accum: (
-                print("Epoch: %d Step: %d Loss: %f Tokens per Sec: %f"
-                      % (epoch + 1, s0 + step * a, loss, tps)),
-                logs.train_step(epoch + 1, s0 + step * a, loss, tps)),
-            step_callback=(lambda st, j, e=epoch, s0=start_b, a=accum:
-                           ckpt.save_step(st, e, s0 + j * a)),
-            step_callback_every=ckpt_every)
-        log.info("epoch: %d  train loss: %f", epoch + 1, train_loss)
-        log.info("-------validation--------")
-        vit = BatchIterator(valid_data, valid_plans, data_cfg, train=False,
-                            transform=to_device)
-        _, valid_loss = trainer.run_epoch(state, vit, train=False)
-        log.info("epoch: %d validation loss: %f", epoch + 1, valid_loss)
-        logs.epoch(epoch + 1, "train", train_loss)
-        logs.epoch(epoch + 1, "val", valid_loss)
-        ckpt.save(epoch + 1, state, val_loss=valid_loss,
-                  keep=args.keep_checkpoints)
-        if valid_loss < min_valid_loss:
-            log.info("validation loss reduced %.4f -> %.4f",
-                     min_valid_loss, valid_loss)
-            min_valid_loss = valid_loss
-            bestmodel_num = epoch + 1
-        if stopper.update(valid_loss):
-            log.info("early stopping: no validation improvement in %d "
-                     "epochs (best %.4f at epoch %d)", args.patience,
-                     min_valid_loss, bestmodel_num)
+    with profiling.trace(args.profile_dir):
+        for epoch in range(start_epoch, args.num_epochs):
+            # the shuffle and the cut_a draws are keyed by (seed, epoch[,
+            # batch]), so a --resume step run skips the consumed prefix and
+            # repeats an uninterrupted run
+            plans_ep = shuffled(train_plans,
+                                np.random.default_rng([args.rand_seed, epoch]))
+            start_b = resume_batch if epoch == start_epoch else 0
+            it = BatchIterator(train_data, plans_ep[start_b:], data_cfg,
+                               train=True, seed_key=(args.rand_seed, epoch),
+                               start=start_b, transform=to_device,
+                               feature_cache=feature_cache)
+            accum = args.accum_steps
+            if accum > 1:
+                it = accumulated(it, accum, pad=trainer.pad)
+            # logged step/batch indices stay in batch units under accumulation
+            state, train_loss = trainer.run_epoch(
+                state, it, base_seed, train=True,
+                report_fn=lambda step, loss, tps, s0=start_b, a=accum: (
+                    print("Epoch: %d Step: %d Loss: %f Tokens per Sec: %f"
+                          % (epoch + 1, s0 + step * a, loss, tps)),
+                    logs.train_step(epoch + 1, s0 + step * a, loss, tps)),
+                step_callback=(lambda st, j, e=epoch, s0=start_b, a=accum:
+                               ckpt.save_step(st, e, s0 + j * a)),
+                step_callback_every=ckpt_every)
+            log.info("epoch: %d  train loss: %f", epoch + 1, train_loss)
+            log.info("-------validation--------")
+            vit = BatchIterator(valid_data, valid_plans, data_cfg,
+                                train=False, transform=to_device,
+                                feature_cache=feature_cache)
+            _, valid_loss = trainer.run_epoch(state, vit, train=False)
+            log.info("epoch: %d validation loss: %f", epoch + 1, valid_loss)
+            logs.epoch(epoch + 1, "train", train_loss)
+            logs.epoch(epoch + 1, "val", valid_loss)
+            ckpt.save(epoch + 1, state, val_loss=valid_loss,
+                      keep=args.keep_checkpoints)
+            if valid_loss < min_valid_loss:
+                log.info("validation loss reduced %.4f -> %.4f",
+                         min_valid_loss, valid_loss)
+                min_valid_loss = valid_loss
+                bestmodel_num = epoch + 1
+            if stopper.update(valid_loss):
+                log.info("early stopping: no validation improvement in %d "
+                         "epochs (best %.4f at epoch %d)", args.patience,
+                         min_valid_loss, bestmodel_num)
+                log.info("----------------")
+                break
             log.info("----------------")
-            break
-        log.info("----------------")
-    ckpt.flush()
+    ckpt.flush()   # async: the last save durable and in meta.json
     log.info("the best model is epoch %d.", bestmodel_num)
     return 0
 

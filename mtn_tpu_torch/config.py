@@ -4,9 +4,8 @@ Same sections, field names, defaults and JSON schema as the JAX package,
 so a ``<prefix>.conf.json`` written by ``mtn_tpu`` training loads here
 unchanged and one config drives both packages. ``use_pallas_attention``
 and ``use_pallas_ffn`` keep their names: in this package they select the
-hand-written Hopper kernels (``mtn_tpu_torch/csrc``). Fields whose paths
-the port does not run yet (``batched_ae``, int8 feature transfer) are kept
-for the schema and refused where used.
+hand-written Hopper kernels (``mtn_tpu_torch/csrc``). ``scan_unroll``
+has no meaning in eager PyTorch and is kept for the schema.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ class ModelConfig:
     use_pallas_ffn: bool = False
     # decode-time self-attention q/k/v as one (D, 3D) product
     fused_decode_qkv: bool = False
-    batched_ae: bool = False      # not ported yet (ROADMAP)
+    batched_ae: bool = False      # the S AE chains as one stacked chain
     remat: bool = False           # recompute decoder layers in backward
 
     @property
@@ -74,7 +73,7 @@ class DataConfig:
     feature_bucket: int = 32       # round video-frame counts up to multiples
     pad_batch_to_full: bool = True # pad batch dim to `batch_size` with masked rows
     prefetch: int = 2
-    use_native_loader: bool = True # the C++ loader is not ported; numpy reads
+    use_native_loader: bool = True # C++ .npy reader (csrc/npy_loader.cc)
     feature_dtype: str = "float32"
 
 

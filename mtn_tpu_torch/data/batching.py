@@ -11,7 +11,10 @@ bucketing, same padding), so both packages decode identical batches:
   and optionally pads the batch axis with all-<blank> rows (``valid``
   marks the real ones);
 - ``cut_a`` truncates answers at random with an explicit
-  ``np.random.Generator``.
+  ``np.random.Generator``;
+- features come through ``load_features`` (the C++ loader by default,
+  and an optional write-once ``FeatureCache``, whose blocks are padded
+  on the batch axis in their transfer form).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from mtn_tpu_torch.data.dataset import DialogueDataset
+from mtn_tpu_torch.data.feature_cache import BF16Feature, QuantFeature
 from mtn_tpu_torch.data.features import load_features
 from mtn_tpu_torch.data.vocab import BLANK
 
@@ -99,8 +103,10 @@ class HostBatch:
     """One padded batch on the host (numpy), ready for the device.
 
     Text arrays are (B, L) int32 padded with ``<blank>``; features are
-    zero-padded (B, T, D) float32 with explicit frame counts. ``valid``
-    marks real rows when the batch axis was padded to a static size.
+    zero-padded (B, T, D) float32 with explicit frame counts, or a
+    feature cache's :class:`BF16Feature` / :class:`QuantFeature` blocks.
+    ``valid`` marks real rows when the batch axis was padded to a static
+    size.
     """
 
     query: np.ndarray
@@ -142,7 +148,8 @@ def make_batch(data: DialogueDataset, plan: BatchPlan,
                skip: Sequence[int] = (1, 1, 1), cut_a: bool = False,
                cut_a_p: float = 0.5, rng: Optional[np.random.Generator] = None,
                length_bucket: int = 1, feature_bucket: int = 1,
-               pad_rows_to: int = 0) -> HostBatch:
+               pad_rows_to: int = 0, use_native_loader: bool = True,
+               feature_cache=None) -> HostBatch:
     pad = data.vocab[BLANK]
     n = plan.n_seqs
     rows = max(n, pad_rows_to) if pad_rows_to else n
@@ -176,11 +183,15 @@ def make_batch(data: DialogueDataset, plan: BatchPlan,
     )
     if data.features is not None:
         max_frames = [_round_up(x, feature_bucket) for x in plan.x_len]
-        fts, lens = load_features(data.features, plan.vids, max_frames, skip)
+        fts, lens = load_features(data.features, plan.vids, max_frames, skip,
+                                  use_native=use_native_loader,
+                                  cache=feature_cache)
         if rows > n:
-            fts = [np.concatenate(
-                [f, np.zeros((rows - n,) + f.shape[1:], f.dtype)])
-                for f in fts]
+            fts = [f.pad_rows(rows) if isinstance(f, (QuantFeature,
+                                                      BF16Feature))
+                   else np.concatenate(
+                       [f, np.zeros((rows - n,) + f.shape[1:], f.dtype)])
+                   for f in fts]
             lens = [np.concatenate(
                 [l, np.zeros((rows - n,), l.dtype)]) for l in lens]
         batch.fts, batch.fts_len = fts, lens

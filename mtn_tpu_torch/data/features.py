@@ -1,25 +1,31 @@
-"""Lazy video-feature registry and the numpy ``.npy`` loader.
+"""Lazy video-feature registry and the batch feature loaders.
 
-The port's own copy of the ``.npy`` path of ``mtn_tpu/data/features.py``:
-the registry maps ``vid -> (path, n_frames)`` per stream from header-only
-reads; a batch load zero-pads each stream to ``(B, max_frames, D)`` f32
-with explicit frame counts, applies the frame skip, flattens 3-D
-``(T, R, D)`` arrays into ``T*R`` frames, and reads each distinct file of
-a batch once. The C++ loader and the feature cache are not ported yet.
+The port's own copy of ``mtn_tpu/data/features.py``: the registry maps
+``vid -> (path, n_frames)`` per stream from header-only reads (``.npy``;
+a ``.pkl`` file holds one pickled array and is loaded whole); a batch
+load zero-pads each stream to ``(B, max_frames, D)`` f32 with explicit
+frame counts, applies the frame skip, flattens 3-D ``(T, R, D)`` arrays
+into ``T*R`` frames, and reads each distinct file of a batch once.
+
+``.npy`` streams go through the C++ loader (``data/native_loader.py``)
+when it is built; files it cannot parse (f16, integers, Fortran order)
+and ``.pkl`` files are read with numpy, to the same bits. A
+:class:`~mtn_tpu_torch.data.feature_cache.FeatureCache` passed as
+``cache=`` serves blocks it holds and stores the ones it does not.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 
 def get_npy_shape(filename: str) -> Tuple[int, ...]:
-    """Read only the array header."""
-    if not filename.endswith(".npy"):
-        raise NotImplementedError(
-            f"{filename}: only .npy features are read by mtn_tpu_torch")
+    """Read only the array header (a ``.pkl`` is loaded whole)."""
+    if filename.endswith(".pkl"):
+        return tuple(_load_npy(filename).shape)
     with open(filename, "rb") as f:
         version = np.lib.format.read_magic(f)
         if version == (1, 0):
@@ -75,38 +81,95 @@ class FeatureRegistry:
                 for stream in self.streams]
 
 
+def _load_npy(path: str) -> np.ndarray:
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            return np.asarray(pickle.load(f))
+    return np.load(path)
+
+
+def native_in_use() -> bool:
+    """True when the C++ loader is built and loaded in this process, so
+    :func:`load_features` reads ``.npy`` streams with it by default."""
+    from mtn_tpu_torch.data import native_loader
+    return native_loader.available()
+
+
+def _load_numpy(paths: Sequence[str], max_frames: int, skip: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    read_cache: Dict[str, np.ndarray] = {}
+
+    def _read(p):
+        a = read_cache.get(p)
+        if a is None:
+            a = _load_npy(p)[::skip]
+            a = a.reshape(-1, a.shape[-1]) if a.ndim == 3 else a
+            read_cache[p] = a
+        return a
+    D = _read(paths[0]).shape[-1]
+    arr = np.zeros((len(paths), max_frames, D), dtype=np.float32)
+    ln = np.zeros((len(paths),), dtype=np.int32)
+    for j, p in enumerate(paths):
+        a = _read(p)
+        n = min(a.shape[0], max_frames)
+        arr[j, :n] = a[:n]
+        ln[j] = n
+    return arr, ln
+
+
+def _load_native(native, paths: Sequence[str], max_frames: int, skip: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The C++ reader over the distinct files, scattered to their rows."""
+    uniq = list(dict.fromkeys(paths))
+    arr, ln = native.load_batch(uniq, max_frames, skip)
+    if len(uniq) < len(paths):
+        pos = {p: k for k, p in enumerate(uniq)}
+        inv = np.array([pos[p] for p in paths])
+        arr, ln = arr[inv], ln[inv]
+    return arr, ln
+
+
 def load_features(registry: FeatureRegistry, vids: Sequence[str],
-                  max_frames: Sequence[int], skip: Sequence[int]
+                  max_frames: Sequence[int], skip: Sequence[int],
+                  use_native: bool = True, cache=None
                   ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """Load and pad one batch of per-video features.
 
     Returns ``(fts, fts_len)``: ``fts[i]`` is a zero-padded
     ``(B, max_frames[i], D_i)`` float32 array for stream ``i`` and
     ``fts_len[i]`` the (B,) int32 count of real frames after skipping.
+    With ``cache``, a block comes back in the cache's transfer form
+    (float32, :class:`~mtn_tpu_torch.data.feature_cache.BF16Feature` or
+    :class:`~mtn_tpu_torch.data.feature_cache.QuantFeature`).
     """
-    B = len(vids)
+    native = None
+    if use_native:
+        from mtn_tpu_torch.data import native_loader
+        native = native_loader if native_loader.available() else None
     fts: List[np.ndarray] = []
     lens: List[np.ndarray] = []
     for i in range(len(registry)):
         paths = [registry.path(i, vid) for vid in vids]
         s = skip[i] if i < len(skip) else 1
-        read_cache: Dict[str, np.ndarray] = {}
-
-        def _read(p):
-            a = read_cache.get(p)
-            if a is None:
-                a = np.load(p)[::s]
-                a = a.reshape(-1, a.shape[-1]) if a.ndim == 3 else a
-                read_cache[p] = a
-            return a
-        D = _read(paths[0]).shape[-1]
-        arr = np.zeros((B, int(max_frames[i]), D), dtype=np.float32)
-        ln = np.zeros((B,), dtype=np.int32)
-        for j, p in enumerate(paths):
-            a = _read(p)
-            n = min(a.shape[0], arr.shape[1])
-            arr[j, :n] = a[:n]
-            ln[j] = n
+        frames = int(max_frames[i])
+        key = None
+        if cache is not None:
+            key = cache.key(paths, frames, int(s))
+            hit = cache.get(key)
+            if hit is not None:
+                fts.append(hit[0])
+                lens.append(hit[1])
+                continue
+        arr = None
+        if native is not None and all(p.endswith(".npy") for p in paths):
+            try:
+                arr, ln = _load_native(native, paths, frames, s)
+            except IOError:   # a dtype or layout the C++ reader refuses
+                arr = None
+        if arr is None:
+            arr, ln = _load_numpy(paths, frames, s)
+        if key is not None:
+            arr = cache.put(key, arr, ln)   # the transfer form
         fts.append(arr)
         lens.append(ln)
     return fts, lens

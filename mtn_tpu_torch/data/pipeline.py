@@ -11,7 +11,9 @@ own copy of ``mtn_tpu/data/pipeline.py``, same laws):
   uninterrupted run draws;
 - :func:`shuffled` permutes the plans with the generator it is given
   (``default_rng([rand_seed, epoch])`` in the train CLI): with numpy's
-  draws the order equals ``mtn_tpu``'s for the same seed.
+  draws the order equals ``mtn_tpu``'s for the same seed;
+- features are read by the C++ loader unless ``cfg.use_native_loader`` is
+  off, through ``feature_cache`` when one is given.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ class BatchIterator:
 
     def __init__(self, data: DialogueDataset, plans: Sequence[BatchPlan],
                  cfg: DataConfig, train: bool, transform=None,
-                 seed_key: Sequence[int] = (), start: int = 0):
+                 seed_key: Sequence[int] = (), start: int = 0,
+                 feature_cache=None):
         self.data = data
         self.plans = list(plans)
         self.cfg = cfg
@@ -42,6 +45,7 @@ class BatchIterator:
         self.transform = transform
         self.seed_key = tuple(seed_key)
         self.start = start
+        self.feature_cache = feature_cache
 
     def _make(self, plan: BatchPlan, idx: int) -> HostBatch:
         cfg = self.cfg
@@ -52,7 +56,9 @@ class BatchIterator:
             skip=cfg.skip, cut_a=self.cut_a, cut_a_p=cfg.cut_a_p, rng=rng,
             length_bucket=cfg.length_bucket,
             feature_bucket=cfg.feature_bucket,
-            pad_rows_to=(cfg.batch_size if cfg.pad_batch_to_full else 0))
+            pad_rows_to=(cfg.batch_size if cfg.pad_batch_to_full else 0),
+            use_native_loader=cfg.use_native_loader,
+            feature_cache=self.feature_cache)
         return self.transform(hb) if self.transform is not None else hb
 
     def __len__(self) -> int:

@@ -19,8 +19,12 @@ the FFNs, and on the attention probabilities (``attn_dropout``). With
 ``remat`` each decoder layer's training forward runs under
 ``torch.utils.checkpoint`` (``nn.remat(DecoderLayer)``): its activations
 are recomputed in the backward, with the RNG state of the forward, so
-dropout draws the same masks. ``batched_ae`` is not ported yet and
-raises.
+dropout draws the same masks.
+
+With ``batched_ae`` (and more than one stream) the per-stream AE chains
+run as one stacked chain over (S, B, L, D), as JAX's
+``_ae_streams_batched``: the parameters keep the sequential names and
+layout, so checkpoints are interchangeable.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mtn_tpu_torch.models.layers import (FeedForward, Generator,
                                          PosEncoding, RefLayerNorm,
                                          ScaledEmbed, Sublayer, named_list,
                                          torch_dtype)
+from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.masks import attend_first_if_empty
 
 Tensor = torch.Tensor
@@ -177,10 +182,19 @@ class DecoderLayer(nn.Module):
 
     def _ae_streams(self, ae_fts, enc: Encoded, masks: SourceMasks,
                     ae_mask) -> List[Tensor]:
-        """Each stream's AE chain: self-attn → vid-attn → FFN."""
+        """Each stream's AE chain: self-attn → vid-attn → FFN; one
+        stacked chain under ``cfg.batched_ae`` with more than one
+        stream."""
+        S = self.cfg.n_streams
+        pick = lambda i: (ae_fts[i] if isinstance(ae_fts, (list, tuple))
+                          else ae_fts)
+        if self.cfg.batched_ae and S > 1:
+            stacked = self._ae_streams_batched(
+                [pick(i) for i in range(S)], enc.vid, masks.vid, ae_mask)
+            return list(stacked.unbind(0))
         out = []
-        for i in range(self.cfg.n_streams):
-            ae = ae_fts[i] if isinstance(ae_fts, (list, tuple)) else ae_fts
+        for i in range(S):
+            ae = pick(i)
             vid, vmask = enc.vid[i], masks.vid[i]
             ae = self.sl_ae_self[i](ae, lambda y: self.ae_self_attn[i](
                 y, y, y, ae_mask))
@@ -189,6 +203,73 @@ class DecoderLayer(nn.Module):
             ae = self.sl_ae_ff[i](ae, self.ae_ff[i])
             out.append(ae)
         return out
+
+    def _ae_streams_batched(self, ae_list, enc_vid, vid_masks,
+                            ae_mask) -> Tensor:
+        """The S AE chains as one chain over a stacked (S, B, L, D)
+        tensor, each sublayer once (JAX's ``_ae_streams_batched``).
+
+        The streams' weights, biases and norm parameters are stacked per
+        call; the video streams are zero-padded to the longest and their
+        padded keys masked, which the f32 softmax makes exact. The AE FFN
+        is ``relu(lin) → lin`` in plain PyTorch, never the FFN kernel, as
+        JAX's stacked einsum never reaches ``fused_ffn``; attention runs
+        through ``multi_head_attention`` on (S·B, H, L, Dk) with its
+        kernel gate. int8 kernels scale after the product with their
+        stacked per-channel scales. In training, dropout draws over the
+        stacked shape: JAX's distribution, not its bits."""
+        cfg = self.cfg
+        S, D, H = cfg.n_streams, cfg.d_model, cfg.att_h
+        dt = torch_dtype(cfg.dtype)
+        maxT = max(v.shape[1] for v in enc_vid)
+        vid = torch.stack([nn.functional.pad(v, (0, 0, 0, maxT - v.shape[1]))
+                           for v in enc_vid])                  # (S,B,T,D)
+        vmask = torch.stack([nn.functional.pad(m, (0, maxT - m.shape[-1]))
+                             for m in vid_masks])              # (S,B,1,T)
+        ae = torch.stack(ae_list)                              # (S,B,L,D)
+        B = ae.shape[1]
+        amask = ae_mask[None].expand((S,) + tuple(ae_mask.shape))
+        per_stream = lambda t: t[:, None, None, :]
+
+        def drop(x):
+            return nn.functional.dropout(x, cfg.dropout,
+                                         training=self.training)
+
+        def norm(x, subs):
+            a = torch.stack([s.norm.scale for s in subs])
+            b = torch.stack([s.norm.bias for s in subs])
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = torch.square(xf - mean).sum(dim=-1, keepdim=True) / (D - 1)
+            y = per_stream(a) * (xf - mean) / (torch.sqrt(var) + 1e-6) \
+                + per_stream(b)
+            return y.to(x.dtype)
+
+        def lin(x, mods, name):
+            subs = [getattr(m, name) for m in mods]
+            W = torch.stack([s.kernel for s in subs]).to(dt)   # (S,D,E)
+            y = torch.matmul(x.to(dt), W[:, None])
+            if subs[0].is_int8:
+                y = y * per_stream(torch.stack(
+                    [s.kernel_scale for s in subs]).to(dt))
+            return y + per_stream(torch.stack([s.bias for s in subs]))
+
+        def mha(mods, xq, xkv, mask):
+            split = lambda t: t.reshape(S * B, -1, H, D // H).transpose(1, 2)
+            out = multi_head_attention(
+                split(lin(xq, mods, "w_q")), split(lin(xkv, mods, "w_k")),
+                split(lin(xkv, mods, "w_v")),
+                mask.reshape(S * B, 1, 1, mask.shape[-1]),
+                dropout_rate=cfg.attn_dropout if self.training else 0.0,
+                use_kernel=cfg.use_pallas_attention)
+            return lin(out.transpose(1, 2).reshape(S, B, -1, D), mods, "w_o")
+
+        y = norm(ae, self.sl_ae_self)
+        ae = ae + drop(mha(self.ae_self_attn, y, y, amask))
+        ae = ae + drop(mha(self.ae_vid_attn, norm(ae, self.sl_ae_vid), vid,
+                           vmask))
+        h = torch.relu(lin(norm(ae, self.sl_ae_ff), self.ae_ff, "w_1"))
+        return ae + drop(lin(drop(h), self.ae_ff, "w_2"))
 
     # -- full (training) forward -------------------------------------------
     def forward(self, x, enc: Encoded, masks: SourceMasks, tgt_mask, ae_fts):
@@ -319,9 +400,6 @@ class MTN(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.batched_ae:
-            raise NotImplementedError(
-                "batched_ae is not ported yet (ROADMAP: 'batched_ae')")
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
         pt = torch_dtype(cfg.param_dtype)

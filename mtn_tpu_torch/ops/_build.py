@@ -1,10 +1,13 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``: the CUDA
+kernels with ``nvcc``, the host C++ feature loader with ``g++``.
 
-Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers), so
-one ``nvcc`` call per source builds a shared library in seconds. Libraries
-go into ``mtn_tpu_torch/_build/`` (git-ignored) at first use, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing here runs at import time: this module is
+Each ``csrc/<name>.cu`` or ``.cc`` exports plain C functions (no PyTorch
+headers), so one compiler call per source builds a shared library in
+seconds. Libraries go into ``mtn_tpu_torch/_build/`` (git-ignored) at
+first use, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused; each build writes a
+temporary file and renames it, so a concurrent reader never loads a
+partial library. Nothing here runs at import time: this module is
 imported on machines with no CUDA toolkit, where only the plain versions
 of the kernels run.
 """
@@ -18,13 +21,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall"]
 
 
 def nvcc_path() -> str:
@@ -39,31 +43,45 @@ def nvcc_path() -> str:
                        "use on a GPU machine")
 
 
-class Kernel:
-    """One CUDA source, its built library and its launch count.
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the native feature loader of "
+                       "mtn_tpu_torch is built from csrc/npy_loader.cc at "
+                       "first use")
 
-    ``bind(lib)`` declares the ``argtypes``/``restype`` of the library's
-    functions. ``launches`` is incremented by the kernel's Python wrapper
-    each time it launches the kernel, and nowhere else."""
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+class Library:
+    """One source under ``csrc/`` and its built shared library.
+
+    ``compiler()`` names the compiler, run as ``compiler flags -o out
+    source libs``; ``bind(lib)`` declares the ``argtypes``/``restype`` of
+    the library's functions."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 suffix: str, compiler: Callable[[], str],
+                 flags: List[str], libs: Tuple[str, ...] = ()):
         self.name = name
-        self.source = CSRC_DIR / f"{name}.cu"
-        self.launches = 0
+        self.source = CSRC_DIR / f"{name}{suffix}"
+        self._compiler = compiler
+        self._flags = flags
+        self._libs = libs
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+                                + " ".join(self._flags
+                                           + list(self._libs)).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def log_path(self) -> Path:
         return self.library_path().with_suffix(".log")
 
     def start_build(self) -> Optional[subprocess.Popen]:
-        """Start ``nvcc`` for this source unless its library exists."""
+        """Start the compiler for this source unless its library exists."""
         out = self.library_path()
         if out.exists():
             return None
@@ -72,7 +90,8 @@ class Kernel:
         log = open(self.log_path(), "w")
         try:
             return subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                [self._compiler(), *self._flags, "-o", str(tmp),
+                 str(self.source), *self._libs],
                 stdout=log, stderr=subprocess.STDOUT)
         finally:
             log.close()
@@ -84,7 +103,8 @@ class Kernel:
         out = self.library_path()
         tmp = Path(proc.args[proc.args.index("-o") + 1])
         if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}) on {self.source}:\n"
+            raise RuntimeError(f"{proc.args[0]} failed ({rc}) on "
+                               f"{self.source}:\n"
                                + self.log_path().read_text())
         os.replace(tmp, out)
 
@@ -101,8 +121,25 @@ class Kernel:
             return self._lib
 
 
-def build_all(kernels: Iterable[Kernel]) -> List[str]:
-    """Build every kernel with one ``nvcc`` per source, all started
+class Kernel(Library):
+    """One CUDA kernel's source, its library and its launch count.
+
+    ``launches`` is incremented by the kernel's Python wrapper each time it
+    launches the kernel, and nowhere else."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        super().__init__(name, bind, ".cu", nvcc_path, NVCC_FLAGS)
+        self.launches = 0
+
+
+def host_library(name: str, bind: Callable[[ctypes.CDLL], None]
+                 ) -> Library:
+    """The host C++ source ``csrc/<name>.cc``, built with ``g++``."""
+    return Library(name, bind, ".cc", gxx_path, GXX_FLAGS, ("-lpthread",))
+
+
+def build_all(kernels: Iterable[Library]) -> List[str]:
+    """Build every library with one compiler per source, all started
     together; returns each build's compiler log (ptxas register and
     shared-memory lines)."""
     kernels = list(kernels)

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from mtn_tpu_torch.ops._build import Kernel, check_cuda
+from mtn_tpu_torch.ops.matmul import matmul_f32
 
 ROW_BLOCK = 256       # the TPU gate: one row block of the Pallas grid
 ROW_TILE = {2: 32, 4: 16}  # rows per block by itemsize, csrc/ffn.cu
@@ -73,9 +74,10 @@ def supports(n_rows: int, d_model: int, d_ff: int, itemsize: int) -> bool:
 
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch; x is (N, D)."""
-    h = torch.relu(torch.matmul(x.float(), w1.float()) + b1.float())
-    y = torch.matmul(h.to(w2.dtype).float(), w2.float()) + b2.float()
+    """The kernel's arithmetic in plain PyTorch; x is (N, D). The products
+    have f32 output (bf16 GEMMs on a GPU, as JAX's ``_xla_ffn``)."""
+    h = torch.relu(matmul_f32(x, w1) + b1.float())
+    y = matmul_f32(h.to(w2.dtype), w2) + b2.float()
     return y.to(x.dtype)
 
 

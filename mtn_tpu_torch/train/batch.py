@@ -10,7 +10,9 @@ ragged last group with :func:`blank_like` batches.
 Features travel in f32, bf16 or, with ``feature_dtype="int8"``, as int8
 with one f32 scale per frame (:func:`host_quant_int8`, on the host),
 dequantized on the device in f32 as JAX's ``_dequant_int8`` does: about a
-quarter of the f32 bytes cross the host link.
+quarter of the f32 bytes cross the host link. A feature cache's blocks
+(``data/feature_cache.py``) are already in transfer form and travel
+as-is: bitwise the uncached transfer.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from mtn_tpu_torch.data.batching import HostBatch
+from mtn_tpu_torch.data.feature_cache import BF16Feature, QuantFeature
 from mtn_tpu_torch.models.layers import torch_dtype
 from mtn_tpu_torch.models.mtn import SourceMasks
 from mtn_tpu_torch.ops.masks import length_mask, pad_mask, target_mask
@@ -48,13 +51,41 @@ def host_quant_int8(f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale
 
 
+def _host(a, dtype=None) -> torch.Tensor:
+    """A CPU tensor of ``a``; a read-only array (a cached block's
+    ``mmap``) is copied first."""
+    a = np.asarray(a, dtype)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _dequant_int8(q: np.ndarray, scale: np.ndarray,
+                  device: Union[str, torch.device]) -> torch.Tensor:
+    """Send int8 ``q`` and its f32 row scales to ``device`` and
+    dequantize there in f32."""
+    return _host(q).to(device).float() * _host(scale).to(device)
+
+
 def int8_transfer(f: np.ndarray,
                   device: Union[str, torch.device]) -> torch.Tensor:
     """Quantize ``f`` on the host, send the int8 array and its f32 row
     scales to ``device``, and dequantize there in f32."""
-    q, scale = host_quant_int8(np.asarray(f, np.float32))
-    return (torch.from_numpy(q).to(device).float()
-            * torch.from_numpy(scale).to(device))
+    return _dequant_int8(*host_quant_int8(np.asarray(f, np.float32)),
+                         device)
+
+
+def _features(f, device, feature_dtype: str) -> torch.Tensor:
+    """One stream's host block on ``device`` in its transfer form."""
+    if isinstance(f, QuantFeature):
+        if feature_dtype != "int8":
+            raise ValueError(f"an int8 feature-cache block under feature "
+                             f"transfer {feature_dtype!r}")
+        return _dequant_int8(f.q, f.scale, device)
+    if feature_dtype == "int8":
+        return int8_transfer(f, device)
+    fdt = torch_dtype(feature_dtype)
+    if isinstance(f, BF16Feature):
+        return f.tensor().to(device=device, dtype=fdt)
+    return _host(f, np.float32).to(device=device, dtype=fdt)
 
 
 def device_batch(hb: HostBatch, device: Union[str, torch.device],
@@ -66,12 +97,7 @@ def device_batch(hb: HostBatch, device: Union[str, torch.device],
     if cap is None:
         cap = np.ones((hb.query.shape[0], 1), dtype=np.int32)
     tok = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)
-    if feature_dtype == "int8":
-        fts = tuple(int8_transfer(f, device) for f in hb.fts)
-    else:
-        fdt = torch_dtype(feature_dtype)
-        fts = tuple(torch.from_numpy(np.asarray(f, np.float32)).to(
-            device=device, dtype=fdt) for f in hb.fts)
+    fts = tuple(_features(f, device, feature_dtype) for f in hb.fts)
     return DeviceBatch(
         query=tok(hb.query), his=tok(hb.his), cap=tok(cap),
         answer_in=tok(hb.answer_in), answer_out=tok(hb.answer_out),

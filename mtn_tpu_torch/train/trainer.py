@@ -46,6 +46,7 @@ from mtn_tpu_torch.models.mtn import MTN
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
 from mtn_tpu_torch.train.loss import mtn_loss
 from mtn_tpu_torch.train.schedule import AdamState, NoamAdam
+from mtn_tpu_torch.utils.profiling import check_finite, step_annotation
 from mtn_tpu_torch.weights import init_params
 
 Tensor = torch.Tensor
@@ -141,9 +142,14 @@ class _Pending:
 
 
 class Trainer:
+    """``nan_checks``: before each update, raise ``FloatingPointError`` if
+    the loss or a gradient is not finite (one host sync per step)."""
+
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                 device, pad: int = SPECIALS[BLANK]):
+                 device, pad: int = SPECIALS[BLANK],
+                 nan_checks: bool = False):
         self.device = torch.device(device)
+        self.nan_checks = nan_checks
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.pad = pad
@@ -252,7 +258,10 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             self.grads
 
-    def _apply(self, state: TrainState, grads: List[Tensor]) -> None:
+    def _apply(self, state: TrainState, loss: Tensor,
+               grads: List[Tensor]) -> None:
+        if self.nan_checks:
+            check_finite(state.step, loss, grads)
         with torch.no_grad():
             self.optimizer.update(list(state.params.values()), grads,
                                   state.opt_state)
@@ -263,8 +272,9 @@ class Trainer:
                    base_seed: int) -> Tuple[TrainState, dict]:
         """One update; ``state`` is updated in place and returned."""
         self.load(state.params)
-        _, metrics, grads = self.loss_and_grads(batch, (base_seed, state.step))
-        self._apply(state, grads)
+        loss, metrics, grads = self.loss_and_grads(batch,
+                                                   (base_seed, state.step))
+        self._apply(state, loss, grads)
         return state, metrics
 
     def train_step_accum(self, state: TrainState,
@@ -284,7 +294,7 @@ class Trainer:
                 b, (base_seed, state.step, i), norm=(ntok, ae_ntok),
                 accumulate=i > 0)
             total = total + loss
-        self._apply(state, grads)
+        self._apply(state, total, grads)
         return state, {"ntokens": ntok, "loss": total,
                        "loss_x_ntok": total * ntok}
 
@@ -323,13 +333,15 @@ class Trainer:
         if not train:
             self.load(state.params)
         for j, batch in enumerate(batches):
-            if not train:
-                metrics = self.eval_step(batch)
-            elif isinstance(batch, list):   # microbatches: accumulate
-                state, metrics = self.train_step_accum(state, batch,
-                                                       base_seed)
-            else:
-                state, metrics = self.train_step(state, batch, base_seed)
+            with step_annotation("train_step" if train else "eval_step", j):
+                if not train:
+                    metrics = self.eval_step(batch)
+                elif isinstance(batch, list):   # microbatches: accumulate
+                    state, metrics = self.train_step_accum(state, batch,
+                                                           base_seed)
+                else:
+                    state, metrics = self.train_step(state, batch,
+                                                     base_seed)
             pending.append(_Pending(metrics))
             while len(pending) > 4:
                 fetch_one()

@@ -14,15 +14,23 @@ Under ``<prefix>_torch/``:
   for the step slot ``step``, ``step_epoch`` and ``step_batch``.
 
 ``save(..., keep=k)`` prunes all but the last ``k`` epochs, never the
-best. Saves are synchronous, so :meth:`CheckpointManager.flush` has
-nothing to do.
+best.
+
+With ``async_save`` a save copies the state off the device (so training
+may reuse its buffers at once) and writes the files on a background
+thread; the ``meta.json`` commit, the step slot's rename and the prune
+wait for the next checkpoint operation (any save, restore or meta read)
+or :meth:`CheckpointManager.flush`, which the train CLI calls at exit.
+The files are those of a blocking save; only what a crash leaves
+differs (the last epoch's files on disk, unreferenced by ``meta.json``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,14 +44,49 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, model_prefix: str):
+    def __init__(self, model_prefix: str, async_save: bool = False):
         self.prefix = model_prefix
         self.dir = os.path.abspath(model_prefix + "_torch")
         os.makedirs(self.dir, exist_ok=True)
         self._meta_path = os.path.join(self.dir, "meta.json")
+        self.async_save = async_save
+        # an async save in flight: (writer thread, its errors, the commit)
+        self._pending: Optional[Tuple[threading.Thread, List[BaseException],
+                                      Callable[[], None]]] = None
+
+    def _write(self, files: List[Tuple[Any, str]],
+               commit: Callable[[], None]) -> None:
+        """Write ``(object, path)`` pairs, then ``commit``; under
+        ``async_save`` the writes run on a thread and the commit waits for
+        the next checkpoint operation."""
+        self.flush()
+        if not self.async_save:
+            for obj, path in files:
+                self._save_atomic(obj, path)
+            commit()
+            return
+        errors: List[BaseException] = []
+
+        def writer():
+            try:
+                for obj, path in files:
+                    self._save_atomic(obj, path)
+            except BaseException as e:   # re-raised by flush()
+                errors.append(e)
+        thread = threading.Thread(target=writer, daemon=True)
+        thread.start()
+        self._pending = (thread, errors, commit)
 
     def flush(self) -> None:
-        """Saves are synchronous: nothing is pending."""
+        """Wait for an async save's writes, then run its commit: the last
+        save is durable and in ``meta.json`` (call before exit)."""
+        if self._pending is None:
+            return
+        (thread, errors, commit), self._pending = self._pending, None
+        thread.join()
+        if errors:
+            raise errors[0]
+        commit()
 
     # -- sidecars -----------------------------------------------------------
     def save_conf(self, vocab: dict, **config_sections) -> None:
@@ -51,6 +94,7 @@ class CheckpointManager:
 
     # -- meta ---------------------------------------------------------------
     def meta(self) -> dict:
+        self.flush()   # a read sees any save in flight committed
         if os.path.exists(self._meta_path):
             with open(self._meta_path) as f:
                 return json.load(f)
@@ -110,9 +154,13 @@ class CheckpointManager:
     # -- epochs -------------------------------------------------------------
     def save(self, epoch: int, state: TrainState,
              val_loss: Optional[float] = None, keep: int = 0) -> None:
-        self._save_atomic(self._params_payload(state),
-                          self._params_path(epoch))
-        self._save_atomic(self._opt_payload(state), self._opt_path(epoch))
+        self._write([(self._params_payload(state), self._params_path(epoch)),
+                     (self._opt_payload(state), self._opt_path(epoch))],
+                    lambda: self._commit_epoch(epoch, val_loss, keep))
+
+    def _commit_epoch(self, epoch: int, val_loss: Optional[float],
+                      keep: int) -> None:
+        """The meta/best-pointer update and the prune of a written epoch."""
         meta = self.meta()
         meta["epochs"] = sorted(set(meta.get("epochs", []) + [epoch]))
         if val_loss is not None and (meta.get("best_loss") is None
@@ -152,16 +200,22 @@ class CheckpointManager:
         (seed, epoch[, batch]) and dropout by (seed, step), so a run
         resumed from it repeats an uninterrupted run."""
         path = os.path.join(self.dir, "step_latest.pt")
-        self._save_atomic({"params": self._params_payload(state),
-                           "opt": self._opt_payload(state)}, path)
-        meta = self.meta()
-        meta["step"] = state.step
-        meta["step_epoch"] = epoch
-        meta["step_batch"] = int(batch_idx)
-        self._write_meta(meta)
+        step = state.step
+
+        def commit():
+            os.replace(path + ".next", path)
+            meta = self.meta()
+            meta["step"] = step
+            meta["step_epoch"] = epoch
+            meta["step_batch"] = int(batch_idx)
+            self._write_meta(meta)
+        self._write([({"params": self._params_payload(state),
+                       "opt": self._opt_payload(state)}, path + ".next")],
+                    commit)
 
     def restore_step(self, state: TrainState):
         """Returns (state, epoch of the interruption, batches consumed)."""
+        self.flush()
         path = os.path.join(self.dir, "step_latest.pt")
         if not os.path.exists(path):
             raise FileNotFoundError(f"no step checkpoint under {self.dir}")

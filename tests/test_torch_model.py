@@ -114,14 +114,14 @@ def test_model_matches_jax(monkeypatch, case):
 
 
 def test_unported_branches_raise():
-    """``batched_ae`` still raises; ``remat`` is ported
-    (tests/test_torch_train.py holds its loss and gradients)."""
+    """Every branch of the config is ported: ``batched_ae`` builds (its
+    numerics are held in tests/test_torch_batched_ae.py) and ``remat``
+    too (tests/test_torch_train.py holds its loss and gradients)."""
     cfg = tiny_model_cfg(30, (12, 8))
     from tests.torch_parity import port_cfg
     c = port_cfg(cfg)
     c.batched_ae = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MTN(c)
+    assert MTN(c).cfg.batched_ae
     c = port_cfg(cfg)
     c.remat = True
     assert MTN(c).cfg.remat

@@ -121,7 +121,9 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
     for name in ("cli.train", "train.trainer", "train.loss",
                  "train.schedule", "data.pipeline", "utils.checkpoint",
                  "utils.logging", "cli.rank", "cli.evaluate",
-                 "evalmetrics.meteor", "evalmetrics.retrieval"):
+                 "evalmetrics.meteor", "evalmetrics.retrieval",
+                 "data.native_loader", "data.feature_cache",
+                 "utils.profiling", "utils.average", "ops.matmul"):
         assert f"mtn_tpu_torch.{name}" in loaded, name
 
 
