@@ -7,9 +7,9 @@
 2. builds the hand-written kernels (mtn_tpu_torch/csrc/*.cu, one nvcc per
    source, all started together);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the shapes of the beam-decode path, of the sample, rank and
-   serving paths (the FFN at 32, 64, 80 and 200 rows, attention at 2 and
-   16 turns), of the batched_ae precompute (attention at B64 = 2 streams
+   and bf16, at the shapes of the beam-decode path, of the sample, rank,
+   serving and AOT paths (the FFN at 5, 32, 64, 80 and 200 rows,
+   attention at 1, 2 and 16 turns), of the batched_ae precompute (attention at B64 = 2 streams
    × 32 turns, Lk 32, and Lk 64 with the shorter stream's padded keys
    masked) and outside its gate (the FFN also at 16, 161 and 256 rows;
    bf16 attention also at
@@ -59,7 +59,17 @@
    100 candidates, a reassembled /v1/stream equal to the greedy decode,
    /admin/reload, /metrics; kernel launches counted over the HTTP
    traffic: both kernels for bf16, attention and never the FFN for
-   int8);
+   int8) and ``[aot]`` (``mtn_tpu_torch.utils.aot``: a bf16 beam
+   artifact with row buckets 1 and 16, rank 100 × 24 and the stream
+   programs, exported and loaded, seconds and bytes per program; the
+   32 requests decoded through it in 16-row chunks bitwise equal to a
+   live session at the same frozen shapes with the same launches per
+   kernel, host ms per step of both; an in-process ``serve_http`` over
+   the artifact from 8 threads, each answer bitwise the live 1-row
+   decode, kernel launches counted over the HTTP traffic, /v1/rank,
+   /v1/stream; the f32 artifact on the card within 1e-3 of the CPU's;
+   an int8-fp-head artifact at 2 blocks bitwise its live session,
+   attention launched and the FFN kernel never);
 7. ``[grad]``: for each kernel in f32 and bf16, the output and the
    gradients through its autograd wrapper (kernel forward, plain
    backward) against its plain version's, at the shapes of a batch-8
@@ -236,6 +246,8 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((2, 8, 32, 64, 64), "keys"),
         ((16, 8, 32, 32, 64), "keys"),   # the same at serving's 16 turns
         ((16, 8, 32, 64, 64), "keys"),
+        ((1, 8, 32, 32, 64), "keys"),    # the same at one turn (serve_http
+        ((1, 8, 32, 64, 64), "keys"),    # --aot decodes each request alone)
         ((64, 8, 32, 32, 64), "keys"),   # batched_ae: 2 streams x 32 turns
         ((64, 8, 32, 64, 64), "padded"),  # ... AE->video, keys 32-63 of
         #                                   the VGGish half padded
@@ -307,7 +319,8 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     """FFN at the decode step's 160 rows (beam), 32 (sample and stream),
     200 (rank: 2 turns × 100 options) and 80 (serving: 16 turns × beam
     5), and at rank's precompute (the AE FFN over 2 turns × 32 query
-    positions, 64 rows); at 16, 161 (a
+    positions, 64 rows); at 5 (an artifact's one-turn beam step, as
+    ``serve_http --aot`` decodes each request); at 16, 161 (a
     ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
     rows, outside the gate. Each case runs twice on the same inputs and
     must agree bitwise. Weights rotate over copies larger than L2 together, so every timed
@@ -326,7 +339,7 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
             torch.randn(F, D, generator=gen) / F ** 0.5,
             torch.randn(D, generator=gen) * 0.1)))
     rows = []
-    for N in (160, 32, 200, 80, 64, 16, 161, 256, 300, 1024):
+    for N in (160, 32, 200, 80, 64, 16, 5, 161, 256, 300, 1024):
         x = torch.randn(N, D, generator=gen).to(dev, dt)
         w1, b1, w2, b2 = weights[0]
         got = fk.ffn(x, w1, b1, w2, b2)
@@ -1187,6 +1200,318 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     return out
 
 
+# -- the AOT artifact ---------------------------------------------------------
+AOT_BATCHES = [1, SERVE_TURN_BATCH]
+AOT_RANK = (N_OPTIONS, 24)
+AOT_REF_TOL = 1e-3       # f32 artifact, card (kernels) vs CPU (plain)
+AOT_INT8_BLOCKS = 2
+
+
+def aot_decode_cfg(turn_batch: int):
+    from mtn_tpu_torch.config import DecodeConfig
+    return DecodeConfig(maxlen=30, beam=5, nbest=5, penalty=1.0,
+                        turn_batch=turn_batch)
+
+
+def aot_lengths(reqs, session) -> dict:
+    """The frozen token lengths of the artifact: the longest query,
+    history and caption of ``reqs``, rounded up to 32; the corpus's
+    frame buckets."""
+    from mtn_tpu_torch.serve import encode_requests
+    hb = encode_requests(reqs, session.model_cfg, session.data_cfg,
+                         session.vocab)
+    up = lambda n: -(-n // 32) * 32
+    return dict(query_len=up(hb.query.shape[1]), his_len=up(hb.his.shape[1]),
+                cap_len=up(hb.cap.shape[1]),
+                frames=[hi for _, hi in FRAMES])
+
+
+def aot_fitted(session, live, reqs, rows: int):
+    """The live session's device batch of ``reqs`` at the artifact's
+    frozen shapes (the artifact's own fit laws)."""
+    import dataclasses
+    from mtn_tpu_torch.serve import encode_requests
+    hb = encode_requests(reqs, live.model_cfg, live.data_cfg, live.vocab,
+                         pad_rows_to=rows)
+    m = session.meta
+    fit = [session._fit_features(f, n, T)
+           for f, n, T in zip(hb.fts, hb.fts_len, m["frames"])]
+    return live.to_device(dataclasses.replace(
+        hb, query=session._fit_tokens(hb.query, m["query_len"], "query"),
+        his=session._fit_tokens(hb.his, m["his_len"], "his"),
+        cap=session._fit_tokens(hb.cap, m["cap_len"], "cap"),
+        fts=[f for f, _ in fit], fts_len=[n for _, n in fit]))
+
+
+def aot_live_nbest(live, dbs):
+    """The live decoder's n-best texts and its decode steps over ``dbs``."""
+    out, steps = [], 0
+    for db in dbs:
+        raw = live.decoder.beam_batch_raw(db)
+        steps += raw.n_steps
+        out += [r.texts(live.vlist)
+                for r in live.decoder.beam_results(raw, db.valid)]
+    return out, steps
+
+
+def aot_export(torch, corpus, art, lengths, decode_cfg, **kw) -> tuple:
+    """``export_decode`` of the corpus checkpoint (``kw`` over it); the
+    meta and the seconds it took."""
+    from mtn_tpu_torch.utils.aot import export_decode
+    t0 = time.perf_counter()
+    meta = export_decode(kw.pop("model_arg", corpus["prefix"] + "_best"),
+                         art, decode_cfg=decode_cfg, **lengths, **kw)
+    return meta, time.perf_counter() - t0
+
+
+def aot_load(torch, art: str, device: str = "cuda"):
+    """An AotSession with every program loaded; (session, seconds, the
+    device bytes its weights hold)."""
+    from mtn_tpu_torch.utils.aot import AotSession
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    session = AotSession(art, device=device)
+    for name in session.meta["blobs"]:
+        if name.endswith(".pt2"):
+            session._program(name)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return session, seconds, torch.cuda.memory_allocated() - before
+
+
+def aot_reference(torch, corpus, root, reqs, lengths) -> dict:
+    """The flagship f32 artifact (both kernel flags) exported for the card
+    and for the CPU, two turns each: the max |Δ| of the prefix program's
+    state (every cross-attention K/V: the attention kernel's output) and
+    of the n-best scores."""
+    from mtn_tpu_torch.utils.aot import AotSession
+    nbest, state = {}, {}
+    for dev in ("cuda", "cpu"):
+        art = os.path.join(root, f"aot_f32_{dev}")
+        aot_export(torch, corpus, art, lengths, aot_decode_cfg(2), batch=2,
+                   device=dev, stream=False, model_overrides={
+                       "dtype": "float32", "use_pallas_attention": True,
+                       "use_pallas_ffn": True})
+        session = AotSession(art, device=dev)
+        nbest[dev] = [r.nbest for r in session.respond_batch(reqs[:2])]
+        with torch.inference_mode():
+            state[dev] = [t.cpu() for t in session._state(
+                2, session._inputs(reqs[:2], 2)[1]) if t.is_floating_point()]
+    diff = max(abs(a[1] - b[1]) for g, w in zip(nbest["cuda"], nbest["cpu"])
+               for a, b in zip(g, w))
+    state_diff = max((a - b).abs().max().item()
+                     for a, b in zip(state["cuda"], state["cpu"]))
+    scores = [s for nb in nbest["cuda"] for _, s in nb]
+    finite = all(math.isfinite(x) for x in scores) and all(
+        torch.isfinite(t).all() for t in state["cuda"])
+    return dict(max_abs_diff=diff, state_max_abs_diff=state_diff,
+                state_values=sum(t.numel() for t in state["cuda"]),
+                tol=AOT_REF_TOL, turns=2,
+                same_answers=sum(g[0][0] == w[0][0] for g, w in
+                                 zip(nbest["cuda"], nbest["cpu"])),
+                finite=finite, ok=bool(diff <= AOT_REF_TOL and state_diff
+                                       <= AOT_REF_TOL and finite))
+
+
+def aot_int8(torch, ak, fk, corpus, root, reqs, lengths) -> dict:
+    """An int8-fp-head artifact of the corpus weights cut to
+    ``AOT_INT8_BLOCKS`` blocks (bf16, both kernel flags): 16 turns
+    against the live int8-fp-head session at the frozen shapes, bitwise;
+    launches of both (attention, never the FFN kernel)."""
+    from mtn_tpu_torch.serve import ServingSession
+    from mtn_tpu_torch.weights import (load_checkpoint, load_conf,
+                                       save_checkpoint, save_conf)
+    vocab, conf = load_conf(corpus["prefix"])
+    conf["model"]["nb_blocks"] = AOT_INT8_BLOCKS
+    prefix = os.path.join(root, "aot_int8_ckpt", "mtn")
+    os.makedirs(os.path.dirname(prefix))
+    save_conf(prefix, vocab, **conf)
+    keep = tuple(f"decoder.layer_{i}." for i in range(AOT_INT8_BLOCKS))
+    sd = {k: v for k, v in load_checkpoint(corpus["prefix"])[0].items()
+          if not k.startswith("decoder.layer_") or k.startswith(keep)}
+    save_checkpoint(prefix, 1, sd)
+    overrides = {"dtype": "bfloat16", "use_pallas_attention": True,
+                 "use_pallas_ffn": True}
+    dcfg = aot_decode_cfg(SERVE_TURN_BATCH)
+    art = os.path.join(root, "aot_int8")
+    meta, export_s = aot_export(
+        torch, corpus, art, lengths, dcfg, model_arg=prefix + "_best",
+        batch=SERVE_TURN_BATCH, stream=False, weights_quant="int8-fp-head",
+        model_overrides=overrides)
+    session, load_s, resident = aot_load(torch, art)
+    live = ServingSession.from_checkpoint(
+        prefix + "_best", dcfg, model_overrides=overrides,
+        weights_quant="int8-fp-head", device="cuda")
+    chunk = reqs[:SERVE_TURN_BATCH]
+    got, aot_launches, _ = run_path(torch, ak, fk,
+                                    lambda: session.respond_batch(chunk))
+    db = aot_fitted(session, live, chunk, SERVE_TURN_BATCH)
+    (want, _), live_launches, _ = run_path(
+        torch, ak, fk, lambda: aot_live_nbest(live, [db]))
+    out = dict(blocks=AOT_INT8_BLOCKS, weights_quant="int8-fp-head",
+               export_s=export_s, bytes=meta["blob_bytes"], load_s=load_s,
+               resident_bytes=resident, launches=aot_launches,
+               live_launches=live_launches,
+               bitwise_live=[r.nbest for r in got] == want)
+    out["ok"] = bool(out["bitwise_live"] and aot_launches == live_launches
+                     and aot_launches["attention"] > 0
+                     and aot_launches["ffn"] == 0)
+    del session, live
+    torch.cuda.empty_cache()
+    return out
+
+
+def op_dispatch(torch, ak, fk) -> dict:
+    """Host-inclusive ms per call (200 calls, CUDA events) of each kernel
+    through its ``torch.library`` op (``ak.attention``, ``fk.ffn``) and
+    through its wrapper's direct launch, at the serving shapes (bf16,
+    attention B16 H8 Lq32 Lk32, FFN N80)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = dict(device="cuda", dtype=torch.bfloat16, generator=g)
+    q, k, v = (torch.randn(16, 8, 32, 64, **bf) for _ in range(3))
+    mask = torch.ones(16, 1, 32, dtype=torch.bool, device="cuda")
+    x = torch.randn(80, 512, **bf)
+    w = [torch.randn(*s, **bf) * 0.02 for s in ((512, 2048), (2048,),
+                                                (2048, 512), (512,))]
+    return {"attention_op_ms": time_ms(lambda: ak.attention(q, k, v, mask)),
+            "attention_launch_ms": time_ms(lambda: ak.launch(q, k, v, mask)),
+            "ffn_op_ms": time_ms(lambda: fk.ffn(x, *w)),
+            "ffn_launch_ms": time_ms(lambda: fk.launch(x, *w))}
+
+
+def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
+    """``mtn_tpu_torch.utils.aot``: the flagship bf16 beam artifact (both
+    kernels, row buckets 1 and 16, rank 100 × 24, the stream programs)
+    exported and loaded; the [serve] phase's 32 requests decoded through
+    it against a live session at the same frozen shapes (16-row chunks,
+    bitwise, the same launches per kernel), with host ms per decode step
+    of both; then served by an in-process ``serve_http`` over the
+    artifact from 8 threads (each answer bitwise the live session's on
+    its 1-row batch; launches, requests/sec, latency), /v1/rank,
+    /v1/stream and /stats; the f32 artifact card vs CPU; an int8-fp-head
+    artifact at 2 blocks."""
+    import threading
+
+    from mtn_tpu_torch.serve import ServingSession
+    from mtn_tpu_torch.serve_http import parse_request, start_server
+    overrides = {"dtype": "bfloat16", "use_pallas_attention": True,
+                 "use_pallas_ffn": True}
+    dcfg = aot_decode_cfg(SERVE_TURN_BATCH)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    live = ServingSession.from_checkpoint(
+        corpus["prefix"] + "_best", dcfg, model_overrides=overrides,
+        device="cuda")
+    torch.cuda.synchronize()
+    live_resident = torch.cuda.memory_allocated() - before
+    bodies = serve_bodies(corpus, SERVE_REQUESTS)
+    reqs = [parse_request(b) for b in bodies]
+    lengths = aot_lengths(reqs, live)
+    art = os.path.join(root, "aot")
+    meta, export_s = aot_export(
+        torch, corpus, art, lengths, dcfg, batches=AOT_BATCHES,
+        rank=AOT_RANK, stream=True, device="cuda",
+        model_overrides=overrides)
+    session, load_s, resident = aot_load(torch, art)
+    warmup_s = session.warmup(stream=True)
+    out = dict(lengths=lengths, buckets=AOT_BATCHES, rank=list(AOT_RANK),
+               export_s=export_s, export_s_by_program=meta["export_s"],
+               bytes=meta["blob_bytes"], bytes_by_file=meta["blobs"],
+               load_s=load_s, resident_bytes=resident,
+               live_resident_bytes=live_resident, warmup_s=warmup_s,
+               torch_version=meta["torch_version"])
+
+    # 32 requests in 16-row chunks: artifact, live, live, artifact
+    dbs = [aot_fitted(session, live, reqs[i:i + SERVE_TURN_BATCH],
+                      SERVE_TURN_BATCH)
+           for i in range(0, SERVE_REQUESTS, SERVE_TURN_BATCH)]
+    walls = {"aot": [], "live": []}
+
+    def timed_run(kind):
+        t0 = time.perf_counter()
+        if kind == "aot":
+            res = [r.nbest for r in session.respond_batch(reqs)]
+        else:
+            res = aot_live_nbest(live, dbs)
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        return res
+    got, aot_launches, aot_calls = run_path(
+        torch, ak, fk, lambda: timed_run("aot"))
+    (want, steps), live_launches, _ = run_path(
+        torch, ak, fk, lambda: timed_run("live"))
+    timed_run("live")
+    timed_run("aot")
+    host_ms = {k: 1e3 * sum(v) / len(v) / steps for k, v in walls.items()}
+    out.update(bitwise_live=got == want, steps=steps,
+               launches=aot_launches, live_launches=live_launches,
+               calls_by_shape=aot_calls, host_ms_per_step=host_ms,
+               wall_s=walls)
+
+    # each request alone (the b1 programs), as serve_http --aot decodes it
+    single = []
+    for r in reqs:
+        single += aot_live_nbest(live, [aot_fitted(session, live, [r], 1)])[0]
+    srv = start_server(session, port=0)
+    base = "http://%s:%d" % srv.server_address
+    try:
+        results = [None] * SERVE_REQUESTS
+        per = SERVE_REQUESTS // SERVE_THREADS
+
+        def caller(i):
+            for j in range(i * per, (i + 1) * per):
+                results[j] = http(base, "/v1/respond", dict(bodies[j],
+                                                            nbest=5))
+
+        def concurrent():
+            threads = [threading.Thread(target=caller, args=(i,))
+                       for i in range(SERVE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        t0 = time.perf_counter()
+        _, http_launches, http_calls = run_path(torch, ak, fk, concurrent)
+        wall = time.perf_counter() - t0
+        answers = [None if r is None or r[0] != 200 else
+                   [(d["answer"], d["score"]) for d in r[1]["nbest"]]
+                   for r in results]
+        stats = http(base, "/stats")[1]
+        code, ranked = http(base, "/v1/rank", dict(bodies[1], candidates=[
+            " ".join(f"w{(7 * i + j) % 5000}" for j in range(3 + i % 9))
+            for i in range(N_OPTIONS)]))
+        text = http(base, "/v1/stream", bodies[2])[1]
+        tokens = [json.loads(ln[6:]).get("token") for ln in
+                  text.splitlines() if ln.startswith("data: ")][:-1]
+        out["http"] = dict(
+            requests=SERVE_REQUESTS, threads=SERVE_THREADS, wall_s=wall,
+            requests_per_sec=SERVE_REQUESTS / wall,
+            latency=stats["latency"], aot=stats["aot"],
+            launches=http_launches, calls_by_shape=http_calls,
+            bitwise_live=answers == single,
+            rank_ok=code == 200 and len(ranked["candidates"]) == N_OPTIONS
+            and all(math.isfinite(c["logp"]) for c in ranked["candidates"]),
+            stream_equals_session=tokens == list(session.stream(reqs[2])))
+    finally:
+        srv.close()
+    del session, srv
+    torch.cuda.empty_cache()
+    out["op_dispatch"] = op_dispatch(torch, ak, fk)
+    out["reference"] = aot_reference(torch, corpus, root, reqs, lengths)
+    out["int8"] = aot_int8(torch, ak, fk, corpus, root, reqs, lengths)
+    h = out["http"]
+    out["ok"] = bool(
+        out["bitwise_live"] and aot_launches == live_launches
+        and min(aot_launches.values()) > 0 and h["bitwise_live"]
+        and h["aot"] is True and min(h["launches"].values()) > 0
+        and h["rank_ok"] and h["stream_equals_session"]
+        and out["reference"]["ok"] and out["int8"]["ok"])
+    del live
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- training ---------------------------------------------------------------
 # -- batched_ae, the data path, the training tools ---------------------------
 BATCHED_REF_TOL = 1e-3   # card (kernels) vs CPU (plain), f32, as [reference]
@@ -2001,6 +2326,14 @@ def main() -> int:
         phase_s["serve"] = time.time() - t_phase
         t_phase = time.time()
 
+        # the AOT artifact: export, load, decode and serve through it
+        aot = aot_phase(torch, ak, fk, corpus, root)
+        print(f"[aot] {json.dumps(aot)}")
+        if not aot["ok"]:
+            return fail("aot: a check failed")
+        phase_s["aot"] = time.time() - t_phase
+        t_phase = time.time()
+
         # batched_ae, the host's data path, the training tools
         batched = batched_ae_phase(torch, ak, fk, generate, corpus, root)
         for r in batched["train_step"].pop("kernel_rows"):
@@ -2076,6 +2409,7 @@ def main() -> int:
                     sample_launches=sample["launches"][name],
                     rank_launches=ranked["launches"][name],
                     serve_launches=serve_launches[name],
+                    aot_launches=aot["http"]["launches"][name],
                     int8_launches=sum(int8[q]["launches"][name]
                                       for q in INT8_MODES),
                     train_launches=train_launches[name],

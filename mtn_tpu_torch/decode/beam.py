@@ -17,7 +17,9 @@ Same search law as the JAX decoder:
 Ties: ``lax.top_k`` puts the lower index first, and both top-k stages and
 the completion pool rely on it. ``torch.topk`` promises no tie order, so
 :func:`top_k` takes a stable descending sort. The early-stop test runs
-on the host here: one device-to-host sync per step.
+on the host here: one device-to-host sync per step. Each loop's body is
+a function of :mod:`mtn_tpu_torch.decode.steps` at a 0-d tensor
+position, the function that :mod:`mtn_tpu_torch.utils.aot` exports.
 
 Sampling transforms the step's log-probs exactly as JAX's
 ``_sample_transform`` does (temperature, top-k, top-p, in f32) and draws
@@ -38,91 +40,19 @@ import torch
 
 from mtn_tpu_torch.config import DecodeConfig
 from mtn_tpu_torch.data.vocab import SPECIALS
+from mtn_tpu_torch.decode.steps import (NEG_INF, BeamResult,  # noqa: F401
+                                        all_ended, beam_init, beam_open,
+                                        beam_step, completions_to_results,
+                                        cut_rows, detokenize, draw_seed,
+                                        gumbel_argmax, gumbel_uniforms,
+                                        rank_inputs, rank_step,
+                                        sample_transform, token_step, top_k)
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
-
-NEG_INF = -1.0e30
-_MASK64 = (1 << 64) - 1
 
 
 def _round_up_int(n: int, m: int) -> int:
     return n if m <= 1 else -(-n // m) * m
-
-
-def draw_seed(seed: int, fold: int, pos: int) -> int:
-    """A 64-bit seed mixed from (seed, fold, position): splitmix64's
-    finaliser over each integer in turn."""
-    h = 0x9E3779B97F4A7C15
-    for x in (seed, fold, pos):
-        h = ((h ^ (x & _MASK64)) * 0xBF58476D1CE4E5B9) & _MASK64
-        h = ((h ^ (h >> 31)) * 0x94D049BB133111EB) & _MASK64
-        h ^= h >> 29
-    return h
-
-
-def gumbel_argmax(logits: torch.Tensor, seed: int) -> torch.Tensor:
-    """One draw per row from ``softmax(logits)``: the argmax of logits
-    plus Gumbel noise from a generator on the logits' device seeded with
-    ``seed`` (``jax.random.categorical``'s law; uniforms kept above f32's
-    smallest normal, as ``jax.random.gumbel`` keeps them)."""
-    gen = torch.Generator(device=logits.device)
-    gen.manual_seed(seed)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device,
-                   dtype=torch.float32)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis, lower index first among equal values
-    (the ``lax.top_k`` order)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
-def detokenize(tokens, vlist, eos: int = SPECIALS["<eos>"]) -> str:
-    """Token ids -> space-joined words, cut at <eos>."""
-    words = []
-    for t in tokens:
-        if int(t) == eos:
-            break
-        words.append(vlist[int(t)])
-    return " ".join(words)
-
-
-@dataclass
-class BeamResult:
-    """Host-side n-best for one turn."""
-
-    tokens: List[List[int]]   # nbest token lists (no <sos>/<eos>)
-    scores: List[float]
-
-    def texts(self, vlist, eos: int = SPECIALS["<eos>"]):
-        return [(detokenize(t, vlist, eos), s)
-                for t, s in zip(self.tokens, self.scores)]
-
-
-def completions_to_results(comp_scores, comp_buf, comp_len,
-                           valid) -> List[BeamResult]:
-    """The completion pool — ``(B, nbest)`` scores, ``(B, nbest,
-    maxlen+1)`` token buffers with the <sos> prefix, ``(B, nbest)``
-    lengths, as numpy — to one :class:`BeamResult` per valid row; an
-    empty pool gives one empty hypothesis scored 0."""
-    results = []
-    for b in range(comp_scores.shape[0]):
-        if not valid[b]:
-            continue
-        toks, scs = [], []
-        for n in range(comp_scores.shape[1]):
-            if comp_scores[b, n] <= NEG_INF / 2:
-                continue
-            L = int(comp_len[b, n])
-            toks.append([int(t) for t in comp_buf[b, n, 1:L + 1]])
-            scs.append(float(comp_scores[b, n]))
-        if not toks:
-            toks, scs = [[]], [0.0]
-        results.append(BeamResult(tokens=toks, scores=scs))
-    return results
 
 
 @dataclass
@@ -148,83 +78,49 @@ class BeamDecoder:
         return self.model.init_decode_state(batch.query, batch.his,
                                             batch.cap, batch.fts, masks)
 
-    def _step(self, state, tokens, pos: int, self_kv):
+    def _step(self, state, tokens, pos, self_kv):
         return self.model.decode_step(state, tokens, pos, self_kv)
+
+    def _stepper(self, state):
+        """The ``step(tokens, pos, self_kv)`` callable of
+        :mod:`~mtn_tpu_torch.decode.steps` on this batch's state."""
+        return lambda tokens, pos, self_kv: self._step(state, tokens, pos,
+                                                       self_kv)
+
+    @staticmethod
+    def _positions(n: int, device) -> torch.Tensor:
+        """0-d int64 positions come from this (n,) tensor: one transfer
+        per loop, none per step."""
+        return torch.arange(n, device=device)
+
+    def token_prefix(self, batch: DeviceBatch):
+        """(state, zeroed KV caches) of a greedy, sample or stream
+        decode."""
+        return (self._decode_state(batch),
+                self.model.init_self_kv(batch.query.shape[0],
+                                        self.cfg.maxlen, batch.query.device))
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def beam_batch_raw(self, batch: DeviceBatch) -> BeamRaw:
         cfg = self.cfg
-        beam, nbest = cfg.beam, cfg.nbest
-        maxlen, min_len, penalty = cfg.maxlen, cfg.min_len, cfg.penalty
-        eos, unk = self.eos, self.unk
         dev = batch.query.device
         B = batch.query.shape[0]
-        state = self._decode_state(batch)
         # tile every per-turn tensor over the beam: row b*beam+k = turn b
-        state = state.map(lambda x: x.repeat_interleave(beam, dim=0))
-        self_kv = self.model.init_self_kv(B * beam, maxlen, dev)
-
-        tok_buf = torch.full((B, beam, maxlen + 1), self.pad,
-                             dtype=torch.int64, device=dev)
-        tok_buf[:, :, 0] = self.sos
-        scores = torch.full((B, beam), NEG_INF, dtype=torch.float32,
-                            device=dev)
-        scores[:, 0] = 0.0  # one live hypothesis at step 0
-        comp_scores = torch.full((B, nbest), NEG_INF, dtype=torch.float32,
-                                 device=dev)
-        comp_buf = torch.full((B, nbest, maxlen + 1), self.pad,
-                              dtype=torch.int64, device=dev)
-        comp_len = torch.zeros((B, nbest), dtype=torch.int64, device=dev)
-        rows = torch.arange(B, device=dev)[:, None] * beam
-
-        # a completion recorded during step l' scores at most
-        # score_active + penalty·(l'+1), and active scores only decay
-        def future_reward(l: int) -> float:
-            return penalty * maxlen if penalty >= 0.0 else penalty * (l + 1.0)
-
+        state = self._decode_state(batch).map(
+            lambda x: x.repeat_interleave(cfg.beam, dim=0))
+        self_kv = self.model.init_self_kv(B * cfg.beam, cfg.maxlen, dev)
+        carry = beam_init(B, cfg, dev, self.pad, self.sos)
+        step = self._stepper(state)
+        pos = self._positions(cfg.maxlen, dev)
         n_steps = 0
-        for l in range(maxlen):
-            if cfg.early_stop:
-                bound = scores.max(dim=1).values + future_reward(l)
-                if not bool((bound >= comp_scores[:, -1]).any()):
-                    break
-            cur = tok_buf[:, :, l].reshape(B * beam)
-            logp, self_kv = self._step(state, cur, l, self_kv)
-            V = logp.shape[-1]
-            logp = logp.reshape(B, beam, V)
-            # -- record completions -----------------------------------
-            # the length reward in f32, as JAX multiplies it
-            reward = float(np.float32(penalty) * np.float32(l + 1))
-            eos_sc = scores + logp[:, :, eos] + reward
-            if l < min_len:
-                eos_sc = torch.full_like(eos_sc, NEG_INF)
-            all_sc = torch.cat([comp_scores, eos_sc], dim=1)
-            all_buf = torch.cat([comp_buf, tok_buf], dim=1)
-            all_len = torch.cat(
-                [comp_len, torch.full((B, beam), l, dtype=torch.int64,
-                                      device=dev)], dim=1)
-            comp_scores, top = top_k(all_sc, nbest)
-            comp_buf = torch.gather(
-                all_buf, 1, top[:, :, None].expand(-1, -1, maxlen + 1))
-            comp_len = torch.gather(all_len, 1, top)
-            # -- expand continuations (skip unk/eos) ------------------
-            cand = scores[:, :, None] + logp
-            cand[:, :, unk] = NEG_INF
-            cand[:, :, eos] = NEG_INF
-            v1, i1 = top_k(cand.reshape(B * beam, V), beam)
-            scores, idx2 = top_k(v1.reshape(B, beam * beam), beam)
-            parent = idx2 // beam
-            token = torch.gather(i1.reshape(B, beam * beam), 1, idx2)
-            tok_buf = torch.gather(
-                tok_buf, 1, parent[:, :, None].expand(-1, -1, maxlen + 1))
-            tok_buf[:, :, l + 1] = token
-            src_rows = (rows + parent).reshape(B * beam)
-            self_kv = tuple((k.index_select(0, src_rows),
-                             v.index_select(0, src_rows))
-                            for k, v in self_kv)
+        for l in range(cfg.maxlen):
+            if cfg.early_stop and not beam_open(carry[1], carry[2], l, cfg):
+                break
+            *carry, self_kv = beam_step(step, pos[l], *carry, self_kv, cfg,
+                                        self.eos, self.unk)
             n_steps = l + 1
-        return BeamRaw(comp_scores, comp_buf, comp_len, n_steps)
+        return BeamRaw(carry[2], carry[3], carry[4], n_steps)
 
     @staticmethod
     def beam_results(raw: BeamRaw, valid) -> List[BeamResult]:
@@ -239,94 +135,63 @@ class BeamDecoder:
 
     # ------------------------------------------------------------------
     def sample_transform(self, logp: torch.Tensor) -> torch.Tensor:
-        """The temperature / top-k / top-p transform of (B, V) f32
-        log-probs (JAX's ``_sample_transform``): entries below the k-th
-        value and outside the nucleus become ``NEG_INF``; ties at the k-th
-        value survive, and the nucleus keeps a token while the mass before
-        it, in ``lax.top_k`` order, is below ``top_p``."""
-        cfg = self.cfg
-        # a 0-d tensor: CUDA divides by a Python scalar as a product with
-        # its reciprocal, which is not JAX's division to the bit
-        temp = torch.full((), max(cfg.temperature, 1e-6),
-                          dtype=torch.float32, device=logp.device)
-        logits = logp / temp
-        if cfg.top_k and cfg.top_k > 0:
-            k = min(int(cfg.top_k), logits.shape[-1])
-            kth = top_k(logits, k)[0][:, -1:]
-            logits = torch.where(logits < kth, NEG_INF, logits)
-        if cfg.top_p and cfg.top_p > 0.0:
-            srt, idx = top_k(logits, logits.shape[-1])
-            probs = torch.softmax(srt, dim=-1)
-            keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < cfg.top_p
-            keep = torch.zeros_like(keep_sorted).scatter(1, idx, keep_sorted)
-            logits = torch.where(keep, logits, NEG_INF)
-        return logits
+        """:func:`~mtn_tpu_torch.decode.steps.sample_transform` under this
+        decoder's config."""
+        return sample_transform(logp, self.cfg)
 
-    def _chooser(self, style: str,
-                 fold: int) -> Callable[[torch.Tensor, int], torch.Tensor]:
-        """The next-token rule of one decode: argmax for greedy (and for
-        sampling at temperature <= 0), else a draw keyed by (seed, fold,
-        position)."""
+    def _uniforms(self, style: str, fold: int, B: int, device
+                  ) -> Callable[[int], Optional[torch.Tensor]]:
+        """The noise of one decode by position: None for greedy (and for
+        sampling at temperature <= 0, which is argmax), else the (B, V)
+        uniforms keyed by (seed, fold, position)."""
         if style == "greedy" or self.cfg.temperature <= 0.0:
-            return lambda logp, l: torch.argmax(logp, dim=-1)
-        seed = self.cfg.sample_seed
-        return lambda logp, l: gumbel_argmax(self.sample_transform(logp),
-                                             draw_seed(seed, fold, l))
+            return lambda l: None
+        seed, V = self.cfg.sample_seed, self.model.cfg.vocab_size
+        return lambda l: gumbel_uniforms((B, V), draw_seed(seed, fold, l),
+                                         device)
 
     @torch.inference_mode()
-    def _token_loop(self, batch: DeviceBatch, choose) -> torch.Tensor:
-        """(B, maxlen+1) tokens with the <sos> prefix, one ``choose`` per
-        step; with early_stop the loop ends once every row has emitted
-        <eos> (tokens after a row's first <eos> are never read)."""
+    def _token_loop(self, batch: DeviceBatch, style: str,
+                    fold: int) -> torch.Tensor:
+        """(B, maxlen+1) tokens with the <sos> prefix, one
+        :func:`token_step` per position; with early_stop the loop ends
+        once every row has emitted <eos> (tokens after a row's first
+        <eos> are never read)."""
         maxlen = self.cfg.maxlen
         dev = batch.query.device
         B = batch.query.shape[0]
-        state = self._decode_state(batch)
-        self_kv = self.model.init_self_kv(B, maxlen, dev)
+        state, self_kv = self.token_prefix(batch)
+        step = self._stepper(state)
+        uniforms = self._uniforms(style, fold, B, dev)
+        pos = self._positions(maxlen, dev)
         toks = torch.full((B, maxlen + 1), self.pad, dtype=torch.int64,
                           device=dev)
         toks[:, 0] = self.sos
         for l in range(maxlen):
-            if self.cfg.early_stop and \
-                    bool((toks[:, 1:] == self.eos).any(dim=1).all()):
+            if self.cfg.early_stop and all_ended(toks, self.eos):
                 break
-            logp, self_kv = self._step(state, toks[:, l], l, self_kv)
-            toks[:, l + 1] = choose(logp, l)
+            toks[:, l + 1] = token_step(step, pos[l], toks[:, l], self_kv,
+                                        uniforms(l), self.cfg)
         return toks
 
     def greedy_tokens(self, batch: DeviceBatch) -> torch.Tensor:
-        return self._token_loop(batch, self._chooser("greedy", 0))
+        return self._token_loop(batch, "greedy", 0)
 
     def sample_tokens(self, batch: DeviceBatch,
                       fold: int = 0) -> torch.Tensor:
         """Ancestral sampling; ``fold`` (the caller's batch counter) keeps
         batches of one seeded run from reusing the same noise."""
-        return self._token_loop(batch, self._chooser("sample", fold))
-
-    def _cut_rows(self, toks: torch.Tensor, valid) -> List[List[int]]:
-        """Tokens after <sos> of every valid row, cut at <eos>."""
-        toks = toks.cpu().numpy()
-        valid = np.asarray(valid.cpu())
-        out = []
-        for b in range(toks.shape[0]):
-            if not valid[b]:
-                continue
-            row = []
-            for t in toks[b, 1:]:
-                if int(t) == self.eos:
-                    break
-                row.append(int(t))
-            out.append(row)
-        return out
+        return self._token_loop(batch, "sample", fold)
 
     def greedy_batch(self, batch: DeviceBatch) -> List[List[int]]:
         """Greedy-decode every row; tokens after <sos>, cut at <eos>."""
-        return self._cut_rows(self.greedy_tokens(batch), batch.valid)
+        return cut_rows(self.greedy_tokens(batch), batch.valid, self.eos)
 
     def sample_batch(self, batch: DeviceBatch,
                      fold: int = 0) -> List[List[int]]:
         """Sample one continuation per row (``greedy_batch``'s output)."""
-        return self._cut_rows(self.sample_tokens(batch, fold), batch.valid)
+        return cut_rows(self.sample_tokens(batch, fold), batch.valid,
+                        self.eos)
 
     # -- streaming ------------------------------------------------------
     def stream_tokens(self, batch: DeviceBatch, style: str = "greedy",
@@ -340,19 +205,20 @@ class BeamDecoder:
         if style not in ("greedy", "sample"):
             raise ValueError(f"stream_tokens: style {style!r} "
                              "(beam n-bests cannot stream)")
-        choose = self._chooser(style, fold)
         dev = batch.query.device
         B = batch.query.shape[0]
         with torch.inference_mode():
-            state = self._decode_state(batch)
-            self_kv = self.model.init_self_kv(B, self.cfg.maxlen, dev)
+            state, self_kv = self.token_prefix(batch)
+            pos = self._positions(self.cfg.maxlen, dev)
+        step = self._stepper(state)
+        uniforms = self._uniforms(style, fold, B, dev)
         valid = np.asarray(batch.valid.cpu())
         cur = torch.full((B,), self.sos, dtype=torch.int64, device=dev)
         done = ~valid
         for l in range(self.cfg.maxlen):
             with torch.inference_mode():
-                logp, self_kv = self._step(state, cur, l, self_kv)
-                cur = choose(logp, l)
+                cur = token_step(step, pos[l], cur, self_kv, uniforms(l),
+                                 self.cfg)
             host = cur.cpu().numpy()
             yield host[valid]
             done |= host == self.eos
@@ -371,15 +237,14 @@ class BeamDecoder:
         state = self._decode_state(batch).map(
             lambda x: x.repeat_interleave(N, dim=0))
         self_kv = self.model.init_self_kv(B * N, L, cand.device)
-        rows = cand.reshape(B * N, L)
+        step = self._stepper(state)
+        rows, inputs = rank_inputs(cand, self.sos)
         lens = cand_len.reshape(B * N)
-        inputs = torch.cat([torch.full_like(rows[:, :1], self.sos),
-                            rows[:, :-1]], dim=1)
+        pos = self._positions(L, cand.device)
         total = torch.zeros(B * N, dtype=torch.float32, device=cand.device)
         for l in range(L):
-            logp, self_kv = self._step(state, inputs[:, l], l, self_kv)
-            tok_lp = torch.gather(logp, 1, rows[:, l:l + 1])[:, 0]
-            total = total + torch.where(l < lens, tok_lp, 0.0)
+            total = rank_step(step, pos[l], rows, inputs, lens, total,
+                              self_kv)
         return total.reshape(B, N)
 
     def rank_batch(self, batch: DeviceBatch,

@@ -101,9 +101,12 @@ class PosEncoding(nn.Module):
         L = x.shape[-2]
         return self.drop(x + self.pe[offset:offset + L])
 
-    def at(self, x: torch.Tensor, pos: int) -> torch.Tensor:
-        """Add the PE row of one position (single-step decode)."""
-        return x + self.pe[pos:pos + 1]
+    def at(self, x: torch.Tensor, pos) -> torch.Tensor:
+        """Add the PE row of one position (single-step decode); ``pos`` an
+        ``int`` or a 0-d int64 tensor."""
+        if isinstance(pos, int):
+            return x + self.pe[pos:pos + 1]
+        return x + self.pe.index_select(0, pos.reshape(1))
 
 
 class ParamLinear(nn.Module):

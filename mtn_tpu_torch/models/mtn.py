@@ -30,7 +30,7 @@ layout, so checkpoints are interchangeable.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,6 +46,7 @@ from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.masks import attend_first_if_empty
 
 Tensor = torch.Tensor
+Position = Union[int, Tensor]
 
 
 def _map(obj, fn: Callable[[Tensor], Tensor]):
@@ -312,7 +313,7 @@ class DecoderLayer(nn.Module):
 
     # -- single-token decode step ------------------------------------------
     def step(self, x, cache: LayerDecodeCache, masks: SourceMasks, ae_mask,
-             self_k, self_v, pos: int, self_q=None):
+             self_k, self_v, pos: Position, self_q=None):
         """x: (B, 1, D). ``self_k/v``: (B, H, maxlen, Dk) caches already
         holding this step's K/V at ``pos``. ``self_q``: the current
         position's head-split q from ``fused_self_qkv``, if used."""
@@ -376,10 +377,11 @@ class Decoder(nn.Module):
             caches.append(cache)
         return tuple(caches)
 
-    def step(self, x, state: DecodeState, self_kv, pos: int):
+    def step(self, x, state: DecodeState, self_kv, pos: Position):
         """One decode position through all layers. ``self_kv``: per layer
-        (k, v) caches (B, H, maxlen, Dk), written in place at ``pos``.
-        Returns (normed x, self_kv)."""
+        (k, v) caches (B, H, maxlen, Dk), written in place at ``pos`` (an
+        ``int``, or a 0-d int64 tensor that a traced program takes as an
+        input). Returns (normed x, self_kv)."""
         for layer, cache, (k_cache, v_cache) in zip(self.layers,
                                                     state.layers, self_kv):
             y = layer.self_norm_in(x)
@@ -388,8 +390,12 @@ class Decoder(nn.Module):
             else:
                 q_t = None
                 k_t, v_t = layer.self_attn.project_kv(y)
-            k_cache[:, :, pos:pos + 1] = k_t
-            v_cache[:, :, pos:pos + 1] = v_t
+            if isinstance(pos, int):
+                k_cache[:, :, pos:pos + 1] = k_t
+                v_cache[:, :, pos:pos + 1] = v_t
+            else:
+                k_cache.index_copy_(2, pos.reshape(1), k_t)
+                v_cache.index_copy_(2, pos.reshape(1), v_t)
             x = layer.step(x, cache, state.masks, state.ae_mask, k_cache,
                            v_cache, pos, self_q=q_t)
         return self.norm(x), self_kv
@@ -495,9 +501,10 @@ class MTN(nn.Module):
             "caption", "summary") else masks.query
         return DecodeState(layers=caches, masks=masks, ae_mask=ae_mask)
 
-    def decode_step(self, state: DecodeState, tokens: Tensor, pos: int,
+    def decode_step(self, state: DecodeState, tokens: Tensor, pos: Position,
                     self_kv):
-        """tokens: (B,) current input token; pos: position. Returns
+        """tokens: (B,) current input token; pos: position, an ``int`` or a
+        0-d int64 tensor (the two give bitwise equal results). Returns
         ((B, V) f32 log-probs, self_kv updated in place)."""
         x = self.pe_tgt.at(self.embed_tgt(tokens[:, None]), pos)
         x, self_kv = self.decoder.step(x, state, self_kv, pos)

@@ -8,12 +8,19 @@ f32 softmax, probabilities rounded to ``v.dtype`` before the PV product
 and the output in ``q.dtype``. The mask is one (B, Lq, Lk) pattern for
 all heads: a 4-D mask takes head 0, like ``_canon_mask``.
 
-:func:`attention` runs the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor; anything it cannot take raises. Where an
-input requires grad, the launch goes through :class:`AttentionFunction`,
-whose backward is the plain math recomputed from the saved inputs, as
-``_flash_bwd`` recomputes ``sdpa_xla`` through ``jax.vjp`` (there is no
-backward kernel, in either package).
+:func:`attention` calls the op ``mtn_tpu_torch::attention``
+(``torch.library``), whose CUDA implementation launches the kernel
+(:func:`launch`) and whose CPU implementation is the plain version; its
+fake implementation gives ``torch.export`` the output's shape, so an
+exported program keeps the op as one node and launches the kernel when
+it runs on the card. Importing this module registers the op. Anything
+the kernel cannot take raises before the op is called (a tracer's fake
+tensors included) and again in :func:`launch`. Where an input requires
+grad, the call goes through :class:`AttentionFunction`, whose forward
+calls the op and whose backward is the plain math recomputed from the
+saved inputs, as ``_flash_bwd`` recomputes ``sdpa_xla`` through
+``jax.vjp`` (there is no backward kernel, in either package); on the CPU
+autograd differentiates the plain version itself.
 """
 
 from __future__ import annotations
@@ -122,12 +129,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,H,Lq,D), k/v (B,H,Lk,D), mask bool broadcastable to
     (B,Lq,Lk) or (B,1,Lq,Lk). Returns (B,H,Lq,D) in q.dtype."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+        return attention_plain(q, k, v, mask) if grad else \
+            attention_op(q, k, v, mask)
+    check(q, k, v, mask)
+    if grad:
         return AttentionFunction.apply(q, k, v, mask)
-    return launch(q, k, v, mask)
+    return attention_op(q, k, v, mask)
 
 
 class AttentionFunction(torch.autograd.Function):
@@ -138,7 +148,7 @@ class AttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask):
         ctx.save_for_backward(q, k, v, mask)
-        return launch(q, k, v, mask)
+        return attention_op(q, k, v, mask)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -155,10 +165,11 @@ class AttentionFunction(torch.autograd.Function):
                   for t in inputs), None)
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors; raises on anything it
-    cannot take."""
+def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """Raise on anything the kernel cannot take; returns the (B, Lq, Lk)
+    view of the mask. Reads shapes, types, devices and strides only, so
+    it also runs on a tracer's fake tensors."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -180,11 +191,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention: Lq={Lq}, Lk={Lk}, D={D} exceed the "
                          "kernel's shared memory")
     m = _canon_mask(mask, B, Lq, Lk)
-    strides = (0, 0, 0)
-    if m is not None:
-        if m.dtype != torch.bool or m.device != q.device:
-            raise TypeError(f"attention: mask must be bool on {q.device}")
-        strides = m.stride()
+    if m is not None and (m.dtype != torch.bool or m.device != q.device):
+        raise TypeError(f"attention: mask must be bool on {q.device}")
+    return m
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; raises on anything it
+    cannot take."""
+    m = check(q, k, v, mask)
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    strides = m.stride() if m is not None else (0, 0, 0)
     out = torch.empty_like(q)
     rc = KERNEL.lib().mtn_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -194,3 +213,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_cuda(rc, "attention kernel launch")
     KERNEL.launches += 1
     return out
+
+
+@torch.library.custom_op("mtn_tpu_torch::attention", mutates_args=(),
+                         device_types="cuda")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The op: one kernel launch on the card (:func:`launch`)."""
+    return launch(q, k, v, mask)
+
+
+@attention_op.register_kernel("cpu")
+def _attention_cpu(q, k, v, mask=None):
+    return attention_plain(q, k, v, mask)
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v, mask=None):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -6,11 +6,17 @@ Counterpart of ``mtn_tpu/ops/pallas_ffn.py`` (``fused_ffn``, gate
 ``y = h·W2 + b2`` in f32, stored in ``x.dtype``. Weights keep the JAX
 layout, W1 (D, F) and W2 (F, D).
 
-:func:`ffn` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; anything it cannot take raises. Where an input
-requires grad, the launch goes through :class:`FFNFunction`, whose
-backward is the plain math recomputed from the saved inputs, as
-``_fused_bwd`` recomputes ``_xla_ffn`` through ``jax.vjp``.
+:func:`ffn` calls the op ``mtn_tpu_torch::ffn`` (``torch.library``),
+whose CUDA implementation launches the kernel (:func:`launch`) and whose
+CPU implementation is the plain version; its fake implementation gives
+``torch.export`` the output's shape, so an exported program keeps the op
+as one node. Importing this module registers the op. Anything the
+kernel cannot take raises before the op is called (a tracer's fake
+tensors included) and again in :func:`launch`. Where an input requires
+grad, the call goes through :class:`FFNFunction`, whose forward calls
+the op and whose backward is the plain math recomputed from the saved
+inputs, as ``_fused_bwd`` recomputes ``_xla_ffn`` through ``jax.vjp``;
+on the CPU autograd differentiates the plain version itself.
 :func:`fused_ffn` is the dispatch of ``FeedForward``: the kernel inside
 the gate, the plain version outside it, as the JAX package dispatches.
 """
@@ -84,12 +90,15 @@ def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (x, w1, b1, w2, b2))
     if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, w1, b1, w2, b2)):
+        return ffn_plain(x, w1, b1, w2, b2) if grad else \
+            ffn_op(x, w1, b1, w2, b2)
+    check(x, w1, b1, w2, b2)
+    if grad:
         return FFNFunction.apply(x, w1, b1, w2, b2)
-    return launch(x, w1, b1, w2, b2)
+    return ffn_op(x, w1, b1, w2, b2)
 
 
 class FFNFunction(torch.autograd.Function):
@@ -99,7 +108,7 @@ class FFNFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return launch(x, w1, b1, w2, b2)
+        return ffn_op(x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -113,10 +122,11 @@ class FFNFunction(torch.autograd.Function):
                      for t in inputs)
 
 
-def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors; raises on anything it
-    cannot take."""
+def check(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+          w2: torch.Tensor, b2: torch.Tensor) -> None:
+    """Raise on anything the kernel cannot take, but the operands'
+    alignment (:func:`launch` checks it). Reads shapes, types, devices
+    and strides only, so it also runs on a tracer's fake tensors."""
     if x.dim() != 2:
         raise ValueError(f"ffn: x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape
@@ -139,10 +149,21 @@ def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"ffn: {name} must be contiguous {x.dtype} on "
                              f"{x.device}")
-        if t.data_ptr() % 32:
-            raise ValueError(f"ffn: {name} must be 32-byte aligned")
     if smem_bytes(D, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"ffn: D={D} exceeds the kernel's shared memory")
+
+
+def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; raises on anything it
+    cannot take."""
+    check(x, w1, b1, w2, b2)
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
+                    ("b2", b2)):
+        if t.data_ptr() % 32:
+            raise ValueError(f"ffn: {name} must be 32-byte aligned")
+    N, D = x.shape
+    F = w1.shape[-1]
     out = torch.empty_like(x)
     rc = KERNEL.lib().mtn_ffn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -152,6 +173,24 @@ def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     check_cuda(rc, "ffn kernel launch")
     KERNEL.launches += 1
     return out
+
+
+@torch.library.custom_op("mtn_tpu_torch::ffn", mutates_args=(),
+                         device_types="cuda")
+def ffn_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The op: one kernel launch on the card (:func:`launch`)."""
+    return launch(x, w1, b1, w2, b2)
+
+
+@ffn_op.register_kernel("cpu")
+def _ffn_cpu(x, w1, b1, w2, b2):
+    return ffn_plain(x, w1, b1, w2, b2)
+
+
+@ffn_op.register_fake
+def _ffn_fake(x, w1, b1, w2, b2):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -20,6 +20,11 @@ The session runs on the card unless it is built with ``device="cpu"``
 It holds the served model and its decoder in one attribute, swapped
 whole by :meth:`ServingSession.reload`: a decode that started before a
 reload finishes on the old weights.
+
+Importing this module imports no model code (the decoder, the model and
+device batches are imported where a session builds them), so an AOT
+artifact's session (:mod:`mtn_tpu_torch.utils.aot`), which shares the
+request encoding here, loads without it.
 """
 
 from __future__ import annotations
@@ -34,9 +39,8 @@ import torch
 from mtn_tpu_torch.config import DecodeConfig, config_from_dict
 from mtn_tpu_torch.data.batching import HostBatch, pad_seqs
 from mtn_tpu_torch.data.vocab import BLANK, vocab_list, words2ids
-from mtn_tpu_torch.decode.beam import BeamDecoder, detokenize
+from mtn_tpu_torch.decode.steps import detokenize
 from mtn_tpu_torch.evalmetrics.retrieval import rank_of
-from mtn_tpu_torch.train.batch import device_batch
 
 
 def _round_up(n: int, m: int) -> int:
@@ -202,6 +206,7 @@ class ServingSession:
     def _build(self, state_dict) -> Served:
         """The model on the session's device, quantized if asked, and its
         decoder. Grad mode is per thread: set here, not inherited."""
+        from mtn_tpu_torch.decode.beam import BeamDecoder
         from mtn_tpu_torch.utils.quantize import quantize_model
         from mtn_tpu_torch.weights import load_model
         with torch.no_grad():
@@ -221,6 +226,7 @@ class ServingSession:
         return self.served.decoder
 
     def to_device(self, hb: HostBatch):
+        from mtn_tpu_torch.train.batch import device_batch
         return device_batch(hb, self.device, self.feature_dtype)
 
     @classmethod
@@ -513,6 +519,7 @@ class AsyncServer:
         return (kind, items, raw, db.valid)
 
     def _drain(self, inflight_item):
+        from mtn_tpu_torch.decode.beam import BeamDecoder
         kind, items, raw, valid = inflight_item
         s = self.session
         try:

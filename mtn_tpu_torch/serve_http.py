@@ -84,7 +84,14 @@ request through ``AsyncServer``, so concurrent HTTP callers share
 stream serialize behind a lock (``ServingSession`` is thread-unsafe and
 the sample path advances a fold counter).
 
-``--aot`` (serving an exported artifact) is not ported and raises.
+``--aot <dir>`` serves an artifact of ``python -m mtn_tpu_torch.utils.aot
+export`` instead of a checkpoint (:class:`~mtn_tpu_torch.utils.aot.
+AotSession`): the decode flags are frozen in it, so any non-default
+decode, mesh, transfer or quantization flag is refused; every route
+serializes behind the session lock (no ``AsyncServer``); ``/v1/rank`` and
+``/v1/stream`` answer 501 where the artifact lacks their programs;
+``/admin/reload`` and ``--watch-seconds`` swap in a re-export (a changed
+``export_id`` in its ``meta.json``).
 """
 
 from __future__ import annotations
@@ -260,9 +267,11 @@ class MTNServer(ThreadingHTTPServer):
 
     ``session`` is duck-typed: any object with ``respond_batch``,
     ``decode_cfg`` and ``epoch`` serves, concretely
-    :class:`~mtn_tpu_torch.serve.ServingSession`. The optional surface
-    (``rank`` / ``stream`` / ``reload`` / ``model_arg``) gates the
-    matching routes: a session without it answers 501 on those paths.
+    :class:`~mtn_tpu_torch.serve.ServingSession` or
+    :class:`~mtn_tpu_torch.utils.aot.AotSession` (``is_aot``: served
+    behind the plain lock). The optional surface (``rank`` / ``stream`` /
+    ``reload`` / ``model_arg``) gates the matching routes: a session
+    without it answers 501 on those paths.
     """
 
     daemon_threads = True
@@ -280,7 +289,10 @@ class MTNServer(ThreadingHTTPServer):
         self.max_queue = max_queue
         self.draining = False
         self.async_server: Optional[AsyncServer] = None
-        if session.decode_cfg.decode_style == "beam_search":
+        # an artifact's session runs behind the plain lock: AsyncServer
+        # drives the live decoder's launch/drain split
+        if session.decode_cfg.decode_style == "beam_search" and \
+                not getattr(session, "is_aot", False):
             self.async_server = AsyncServer(
                 session, max_in_flight=max_in_flight,
                 max_wait_ms=max_wait_ms, max_queue=max_queue)
@@ -341,7 +353,9 @@ class MTNServer(ThreadingHTTPServer):
     def rank_one(self, req: Request, candidates: List[str],
                  include_eos: bool = True):
         if not hasattr(self.session, "rank"):
-            raise NotSupported("this session type does not rank")
+            raise NotSupported("this session does not rank: serve a "
+                               "checkpoint (--model) or an artifact "
+                               "exported with --rank N,L")
         if self.async_server is not None:
             # continuous batching: concurrent rank requests pack into one
             # candidate-tiled launch (AsyncServer.submit_rank)
@@ -426,8 +440,8 @@ class MTNServer(ThreadingHTTPServer):
             "model": (os.path.basename(self.session.model_arg)
                       if getattr(self.session, "model_arg", None) else None),
             "epoch": self.session.epoch,
-            # exported-artifact serving (--aot) is not ported
-            "aot": False,
+            # an exported artifact (serve_http --aot) or a live session
+            "aot": bool(getattr(self.session, "is_aot", False)),
             "latency": self.latency.summary(),
         }
 
@@ -520,6 +534,15 @@ class MTNServer(ThreadingHTTPServer):
         with self._count_lock:
             self.n_unsupported += 1
 
+    def reload_session(self, model: Optional[str] = None):
+        """``session.reload(model)``; an artifact's swap holds the session
+        lock, which every one of its decodes holds (AotSession.reload is
+        not synchronized)."""
+        if getattr(self.session, "is_aot", False):
+            with self._lock:
+                return self.session.reload(model)
+        return self.session.reload(model)
+
     def close(self):
         """Stop accepting connections and drain the batcher."""
         stop = getattr(self, "_watch_stop", None)
@@ -535,32 +558,42 @@ def start_watcher(srv: MTNServer, interval_s: float) -> threading.Event:
     """Hot-reload watcher: poll the model arg (typically
     ``<prefix>_best`` or ``<prefix>_latest``) and reload whenever it
     resolves to another epoch than the one served, so a server pointed
-    at a training run follows it. Returns the stop event (also set by
-    ``srv.close``)."""
+    at a training run follows it. For an artifact's session, poll its
+    ``meta.json`` and swap in the re-export when ``export_id`` changes
+    (the exporter writes meta.json last). Returns the stop event (also
+    set by ``srv.close``)."""
     import logging
 
     from mtn_tpu_torch.cli.generate import _split_model_arg
     from mtn_tpu_torch.weights import resolve_epoch
 
     log = logging.getLogger("mtn_tpu_torch.serve_http.watch")
-    if not getattr(srv.session, "model_arg", None):
+    is_aot = getattr(srv.session, "is_aot", False)
+    if not getattr(srv.session, "model_arg", None) and not is_aot:
         raise ValueError("checkpoint watch needs a session built via "
-                         "ServingSession.from_checkpoint")
+                         "ServingSession.from_checkpoint or an artifact's "
+                         "AotSession")
     stop = threading.Event()
     srv._watch_stop = stop
+
+    def changed() -> bool:
+        if is_aot:
+            with open(os.path.join(srv.session.art_dir, "meta.json")) as f:
+                seen = json.load(f).get("export_id")
+            return seen is not None and seen != srv.session.export_id
+        target = resolve_epoch(*_split_model_arg(srv.session.model_arg))
+        return target is not None and target != srv.session.epoch
 
     def loop():
         while not stop.wait(interval_s):
             try:
-                target = resolve_epoch(*_split_model_arg(
-                    srv.session.model_arg))
-                if target is not None and target != srv.session.epoch:
-                    ep = srv.session.reload()
+                if changed():
+                    ep = srv.reload_session()
                     with srv._count_lock:
                         srv.n_reloads += 1
-                    log.info("hot-reloaded checkpoint epoch %s", ep)
+                    log.info("hot-reloaded epoch %s", ep)
             except Exception:  # keep watching; next save may be whole
-                log.exception("checkpoint watch: reload failed")
+                log.exception("watch: reload failed")
 
     threading.Thread(target=loop, daemon=True, name="mtn-watch").start()
     return stop
@@ -709,7 +742,7 @@ class _Handler(BaseHTTPRequestHandler):
                     raise NotSupported(
                         "this session type does not support hot-reload")
                 try:
-                    epoch = srv.session.reload(model)
+                    epoch = srv.reload_session(model)
                 except (ValueError, FileNotFoundError) as e:
                     raise BadRequest(str(e))
                 with srv._count_lock:
@@ -736,8 +769,9 @@ class _Handler(BaseHTTPRequestHandler):
                     raise BadRequest(
                         "'style' must be 'greedy' or 'sample'")
                 if not hasattr(srv.session, "stream"):
-                    raise NotSupported("this session type does not "
-                                       "stream")
+                    raise NotSupported("this session does not stream: "
+                                       "serve a checkpoint (--model) or an "
+                                       "artifact exported with --stream 1")
                 req = parse_request(body)
                 self._stream_events(req, style)
             elif self.path == "/v1/rank":
@@ -832,9 +866,10 @@ def main(argv=None) -> int:
     parser.add_argument("--model",
                         help="checkpoint prefix (e.g. exps/x/mtn_best)")
     parser.add_argument("--aot",
-                        help="serve an exported artifact directory: not "
-                             "ported (ROADMAP: tools, AOT via "
-                             "torch.export)")
+                        help="serve an artifact directory of python -m "
+                             "mtn_tpu_torch.utils.aot export instead of a "
+                             "checkpoint: the decode flags are frozen in "
+                             "it")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", default=8080, type=int)
     parser.add_argument("--beam", default=5, type=int)
@@ -905,24 +940,43 @@ def main(argv=None) -> int:
     if bool(args.model) == bool(args.aot):
         parser.error("exactly one of --model / --aot is required")
     if args.aot:
-        raise NotImplementedError(
-            "not ported to mtn_tpu_torch yet: --aot (ROADMAP: tools, AOT "
-            "via torch.export)")
-    resolve_device(args.device)
-    decode_cfg = DecodeConfig(
-        maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
-        nbest=args.nbest, min_len=args.min_len,
-        decode_style=args.decode_style, temperature=args.temperature,
-        top_k=args.top_k, top_p=args.top_p,
-        sample_seed=args.sample_seed, turn_batch=args.turn_batch)
-    overrides = {"use_pallas_attention": bool(args.use_pallas_attention),
-                 "use_pallas_ffn": bool(args.use_pallas_ffn),
-                 "fused_decode_qkv": bool(args.fused_decode_qkv)}
-    session = ServingSession.from_checkpoint(
-        args.model, decode_cfg,
-        mesh={"data": args.mesh_data, "model": args.mesh_model},
-        model_overrides=overrides, feature_transfer=args.feature_transfer,
-        weights_quant=args.weights_quant, device=args.device)
+        # a flag the artifact froze at export is refused, not ignored:
+        # serving the artifact's value instead would mislead
+        frozen = ["beam", "penalty", "nbest", "maxlen", "min_len",
+                  "decode_style", "temperature", "top_k", "top_p",
+                  "sample_seed", "turn_batch", "mesh_data", "mesh_model",
+                  "fused_decode_qkv", "feature_transfer", "weights_quant",
+                  "use_pallas_attention", "use_pallas_ffn"]
+        bad = [f for f in frozen
+               if getattr(args, f) != parser.get_default(f)]
+        if bad:
+            flags = ", ".join("--" + f.replace("_", "-") for f in bad)
+            parser.error(
+                f"{flags}: frozen in the AOT artifact at export time; "
+                "re-export with 'python -m mtn_tpu_torch.utils.aot export' "
+                "to change them")
+        from mtn_tpu_torch.utils.aot import AotSession
+        session = AotSession(args.aot, device=args.device)
+        logging.info("loaded artifact %s (exported from %s, epoch %s, "
+                     "buckets %s)", args.aot, session.model_arg,
+                     session.epoch, session.buckets)
+    else:
+        resolve_device(args.device)
+        decode_cfg = DecodeConfig(
+            maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
+            nbest=args.nbest, min_len=args.min_len,
+            decode_style=args.decode_style, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p,
+            sample_seed=args.sample_seed, turn_batch=args.turn_batch)
+        overrides = {"use_pallas_attention": bool(args.use_pallas_attention),
+                     "use_pallas_ffn": bool(args.use_pallas_ffn),
+                     "fused_decode_qkv": bool(args.fused_decode_qkv)}
+        session = ServingSession.from_checkpoint(
+            args.model, decode_cfg,
+            mesh={"data": args.mesh_data, "model": args.mesh_model},
+            model_overrides=overrides,
+            feature_transfer=args.feature_transfer,
+            weights_quant=args.weights_quant, device=args.device)
     if session.model_cfg.dtype == "float32":
         import torch
         # full f32 products (no TF32), as the JAX package asks "highest"
@@ -939,9 +993,9 @@ def main(argv=None) -> int:
     if args.watch_seconds > 0:
         start_watcher(srv, args.watch_seconds)
         logging.info("watching %s every %.1fs for new checkpoints",
-                     args.model, args.watch_seconds)
+                     args.model or args.aot, args.watch_seconds)
     logging.info("serving %s on http://%s:%d (style=%s, turn_batch=%d, "
-                 "device=%s)", args.model, *srv.server_address,
+                 "device=%s)", args.model or args.aot, *srv.server_address,
                  session.decode_cfg.decode_style,
                  session.decode_cfg.turn_batch, session.device)
     try:

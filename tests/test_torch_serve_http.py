@@ -506,10 +506,16 @@ def test_setup_logging_wins_over_import_side_effects():
     assert len(root.handlers) == 1
 
 
-def test_main_refuses_aot_and_a_missing_gpu(checkpoint):
+def test_main_refuses_aot_and_a_missing_gpu(checkpoint, tmp_path, capsys):
     prefix, _ = checkpoint
-    with pytest.raises(NotImplementedError, match="ROADMAP: tools"):
-        main(["--aot", "artifact"])
+    # --aot is ported: a missing artifact raises, a frozen flag is an
+    # argparse error
+    with pytest.raises(FileNotFoundError, match="meta.json"):
+        main(["--aot", str(tmp_path / "artifact"), "--device", "cpu"])
+    with pytest.raises(SystemExit) as ei:
+        main(["--aot", str(tmp_path / "artifact"), "--beam", "3"])
+    assert ei.value.code == 2
+    assert "frozen in the AOT artifact" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="ROADMAP: parallel"):
         main(["--model", prefix + "_best", "--device", "cpu",
               "--mesh-data", "2"])

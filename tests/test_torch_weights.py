@@ -123,7 +123,8 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
                  "utils.logging", "cli.rank", "cli.evaluate",
                  "evalmetrics.meteor", "evalmetrics.retrieval",
                  "data.native_loader", "data.feature_cache",
-                 "utils.profiling", "utils.average", "ops.matmul"):
+                 "utils.profiling", "utils.average", "ops.matmul",
+                 "utils.aot", "decode.steps"):
         assert f"mtn_tpu_torch.{name}" in loaded, name
 
 
