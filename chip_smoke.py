@@ -21,8 +21,10 @@
    (``library_*``) beside the bound of the card, two ways: ``*ms`` is the
    host-inclusive time per call (CUDA events around 200 back-to-back calls
    from Python, so at these sizes mostly the host's cost of a call),
-   ``*device_us`` the device time per call (the CUDA kernels the same 200
-   calls launched, summed by torch.profiler);
+   ``*device_us`` the device time per call (the CUDA kernels 50 more
+   calls launched, summed by torch.profiler); attention also at a
+   model-parallel rank's 4 heads and the FFN at its d_ff 1024, with the
+   f32 output that rank's sum takes;
 4. drives the main path — ``python -m mtn_tpu_torch.cli.generate`` beam
    decode (beam 5, maxlen 30, 32 turns per batch, bf16, both kernels on) —
    at the full width of the flagship MTN config (6 blocks, d_model 512,
@@ -33,8 +35,24 @@
    (f32, plain versions) on a small batch;
 6. profiles one warm turn batch of the main path (torch.profiler): host
    wall time, device time by kernel group, the hand-written kernels'
-   device time per call, and the device's idle share; then drives the
-   other decode modes and stage 4 on the same corpus and weights:
+   device time per call, and the device's idle share; then ``[parallel]``
+   (the main path's ``cli.generate`` in a NCCL world of one through
+   ``--multihost``, its JSON bitwise ``[main]``'s; two ranks on the card
+   over gloo as a 2x1 and a 1x2 mesh, spawned through the port's Python
+   API: two bf16 train steps at batch 8, losses equal on both ranks and
+   within 1e-3 of one process's; a 32-turn beam decode, its n-best equal
+   on both ranks, under 2x1 equal to one process's margin-aware; under
+   1x2 the bf16 beam traced step by step against one process's: the
+   log-probs
+   of every hypothesis both runs hold within one bf16 step of a logit,
+   each turn whose beam parts first doing so at a decision (the last
+   hypothesis kept against the first dropped) closer than the runs'
+   score differences, and with attention and the FFN replicated (their
+   f32 sums in one process's order) the decode bitwise one process's;
+   an f32 decode within 1e-3 of one process's, and
+   every kernel launch on the rank's shard: attention at 4 heads, the FFN
+   at d_ff 1024); then drives the other decode modes and stage 4 on the
+   same corpus and weights:
    ``[sample]`` (``cli.generate --decode-style sample``,
    temperature 1, top-k 50, top-p 0.9, through both kernels, counted;
    the same seed again bitwise equal; temperature 0 bitwise equal to
@@ -139,6 +157,10 @@ TOL = {  # kernel vs its plain version, max abs
     ("attention", "bfloat16"): 2 ** -6,   # one bf16 step of |out| < 2
     ("ffn", "float32"): 1e-4,             # 2560-term f32 sums
     ("ffn", "bfloat16"): 2 ** -5,         # one bf16 step of |y| < 4
+    # bf16 inputs, f32 output (a model rank's partial sum): h is rounded to
+    # bf16 alike on both sides, so only the f32 sums' order is left; an
+    # output rounded to bf16 would be off by up to 2^-9 at |y| in [1/2, 1)
+    ("ffn", "bfloat16 f32 out"): 1e-4,
 }
 L2_BYTES = 50 * 2 ** 20
 
@@ -187,10 +209,13 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, iters: int = 200, warmup: int = 10):
+def device_us(fn, iters: int = 50, warmup: int = 10):
     """Device time per call of ``fn`` in µs: the durations of the CUDA
     kernels that ``iters`` calls launched, summed by torch.profiler, over
-    ``iters``; "not measured" if the profiler saw no device activity."""
+    ``iters``; "not measured" if the profiler saw no device activity.
+    (The profiler's own processing, not the calls, takes most of this
+    function's time: 50 calls keep the whole script within half its
+    limit.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -248,6 +273,8 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((16, 8, 32, 64, 64), "keys"),
         ((1, 8, 32, 32, 64), "keys"),    # the same at one turn (serve_http
         ((1, 8, 32, 64, 64), "keys"),    # --aot decodes each request alone)
+        ((32, 4, 32, 32, 64), "keys"),   # a rank's 4 heads under
+        ((32, 4, 32, 64, 64), "keys"),   # --mesh-model 2 ([parallel])
         ((64, 8, 32, 32, 64), "keys"),   # batched_ae: 2 streams x 32 turns
         ((64, 8, 32, 64, 64), "padded"),  # ... AE->video, keys 32-63 of
         #                                   the VGGish half padded
@@ -322,53 +349,71 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     positions, 64 rows); at 5 (an artifact's one-turn beam step, as
     ``serve_http --aot`` decodes each request); at 16, 161 (a
     ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
-    rows, outside the gate. Each case runs twice on the same inputs and
-    must agree bitwise. Weights rotate over copies larger than L2 together, so every timed
-    launch reads them from device memory, as a decode step does (each
-    layer's FFN weights are evicted by the other layers')."""
+    rows, outside the gate. Then a tensor-parallel rank's d_ff slice
+    (F 1024 under ``--mesh-model 2``) at the decode step's 160 rows and a
+    train step's 256, in bf16 also with the f32 output that rank sums
+    (``f32_out``). Each case runs twice on the same inputs and must agree
+    bitwise. Weights rotate over copies larger than L2 together, so every
+    timed launch reads them from device memory, as a decode step does
+    (each layer's FFN weights are evicted by the other layers')."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
-    D, F = 512, 2048
+    D = 512
     elt = torch.empty((), dtype=dt).element_size()
-    copies = max(2, -(-2 * L2_BYTES // (2 * D * F * elt)))
-    weights = []
-    for _ in range(copies):
-        weights.append(tuple(t.to(dev, dt).contiguous() for t in (
-            torch.randn(D, F, generator=gen) / D ** 0.5,
-            torch.randn(F, generator=gen) * 0.1,
-            torch.randn(F, D, generator=gen) / F ** 0.5,
-            torch.randn(D, generator=gen) * 0.1)))
+    outs = (False, True) if dtype_name == "bfloat16" else (False,)
+    cases = [(2048, (160, 32, 200, 80, 64, 16, 5, 161, 256, 300, 1024),
+              (False,)), (1024, (160, 256), outs)]
     rows = []
-    for N in (160, 32, 200, 80, 64, 16, 5, 161, 256, 300, 1024):
-        x = torch.randn(N, D, generator=gen).to(dev, dt)
-        w1, b1, w2, b2 = weights[0]
-        got = fk.ffn(x, w1, b1, w2, b2)
-        again = fk.ffn(x, w1, b1, w2, b2)
-        want = fk.ffn_plain(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if math.isnan(err) or torch.isnan(got.float()).any():
-            raise AssertionError(f"ffn {dtype_name} N={N}: NaN")
-        if not torch.equal(got, again):
-            raise AssertionError(f"ffn {dtype_name} N={N}: two calls on the "
-                                 "same inputs differ")
-        turn = [0]
-
-        def rotating(fn):
-            def call():
-                turn[0] = (turn[0] + 1) % copies
-                return fn(x, *weights[turn[0]])
-            return call
-        row = dict(kernel="ffn", dtype=dtype_name, shape=[N, D, F],
-                   max_abs_err=err, tol=TOL[("ffn", dtype_name)])
-        timed(row, "", rotating(fk.ffn))
-        timed(row, "plain_", rotating(fk.ffn_plain))
-        row["library_ms"] = None  # no single PyTorch call fuses the MLP
-        row["library_device_us"] = None
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            nbytes(x, w1, b1, w2, b2, x), 4 * N * D * F, dtype_name)
-        rows.append(row)
+    for F, Ns, f32_outs in cases:
+        copies = max(2, -(-2 * L2_BYTES // (2 * D * F * elt)))
+        weights = []
+        for _ in range(copies):
+            weights.append(tuple(t.to(dev, dt).contiguous() for t in (
+                torch.randn(D, F, generator=gen) / D ** 0.5,
+                torch.randn(F, generator=gen) * 0.1,
+                torch.randn(F, D, generator=gen) / F ** 0.5,
+                torch.randn(D, generator=gen) * 0.1)))
+        for N in Ns:
+            for f32_out in f32_outs:
+                rows.append(ffn_case(torch, fk, dtype_name, gen, weights, N,
+                                     f32_out))
     return rows
+
+
+def ffn_case(torch, fk, dtype_name, gen, weights, N, f32_out):
+    dt = getattr(torch, dtype_name)
+    w1, b1, w2, b2 = weights[0]
+    D, F = w1.shape
+    x = torch.randn(N, D, generator=gen).to("cuda", dt)
+    got = fk.ffn(x, w1, b1, w2, b2, f32_out)
+    again = fk.ffn(x, w1, b1, w2, b2, f32_out)
+    want = fk.ffn_plain(x, w1, b1, w2, b2, f32_out)
+    torch.cuda.synchronize()
+    what = f"ffn {dtype_name} N={N} F={F}" + (" f32 out" if f32_out else "")
+    err = (got.float() - want.float()).abs().max().item()
+    if math.isnan(err) or torch.isnan(got.float()).any():
+        raise AssertionError(f"{what}: NaN")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    if got.dtype != (torch.float32 if f32_out else dt):
+        raise AssertionError(f"{what}: output dtype {got.dtype}")
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] = (turn[0] + 1) % len(weights)
+            return fn(x, *weights[turn[0]], f32_out)
+        return call
+    tol = TOL[("ffn", dtype_name + (" f32 out" if f32_out else ""))]
+    row = dict(kernel="ffn", dtype=dtype_name, shape=[N, D, F],
+               f32_out=f32_out, max_abs_err=err, tol=tol)
+    timed(row, "", rotating(fk.ffn))
+    timed(row, "plain_", rotating(fk.ffn_plain))
+    row["library_ms"] = None  # no single PyTorch call fuses the MLP
+    row["library_device_us"] = None
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(x, w1, b1, w2, b2, got), 4 * N * D * F, dtype_name)
+    return row
 
 
 def grad_cases(torch, ak, fk, dtype_name: str, gen):
@@ -1972,11 +2017,12 @@ def record_launches(ak, fk, fn):
 
     def recorder(name, orig):
         def launch(*args):
-            key = (name,) + tuple(None if a is None else tuple(a.shape)
-                                  for a in args)
+            key = (name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
+                                  else None for a in args)
             if key not in seen:
-                seen[key] = {"args": [None if a is None else
-                                      a.detach().clone() for a in args],
+                seen[key] = {"args": [a.detach().clone()
+                                      if hasattr(a, "detach") else a
+                                      for a in args],
                              "calls": 0}
             seen[key]["calls"] += 1
             return orig(*args)
@@ -2134,8 +2180,8 @@ def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
             row["plain_device_us"] = device_us(lambda: fk.ffn_plain(*args))
             row["library_device_us"] = None
             row["bound_us"], row["bound_by"] = bound_ms(
-                nbytes(*args, x), 4 * x.shape[0] * x.shape[1] * w1.shape[1],
-                "bfloat16")
+                nbytes(*args[:5], x),
+                4 * x.shape[0] * x.shape[1] * w1.shape[1], "bfloat16")
             fwd_bwd = {"wrapper": lambda: grad(fk.FFNFunction.apply(*leaves)),
                        "plain": lambda: grad(fk.ffn_plain(*leaves))}
         row["bound_us"] *= 1e3
@@ -2149,6 +2195,418 @@ def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
     out["kernels_off"] = steps.pop("plain")
     out["kernels"] = rows
     return out
+
+
+# -- [parallel]: the (data, model) mesh over torch.distributed ranks ---------
+PAR_STEPS = 2            # bf16 train steps at run (b)'s settings
+PAR_LOSS_TOL = 1e-3      # a mesh's step loss against one process's, relative
+PAR_F32_TOL = 1e-3       # f32 n-best scores, model-parallel vs one process
+PAR_MARGIN = {"bfloat16": 0.1, "float32": 1e-3}  # a 1-best margin below
+#   this is a near tie (bf16: one rounding of each step's log-probs, ~1e-2,
+#   summed over the steps; f32: the sums over ranks in another order)
+PAR_LOGP_TOL = 2 ** -4   # bf16: a 1x2 step's log-probs against one
+#   process's on the same hypothesis: one bf16 step of a logit below 16
+PAR_TIMEOUT_S = 600
+PAR_DECODE = dict(maxlen=30, beam=5, nbest=5, penalty=1.0, turn_batch=32)
+# 1x2 decodes traced with one group of layers replicated: which sums taken
+# in another order part a beam from one process's (sharding rule words)
+PAR_REPLICATED = {"head": ("generator",), "attention": ("w_q", "w_o"),
+                  "ffn": ("w_1", "w_2"),
+                  "attention_ffn": ("w_q", "w_o", "w_1", "w_2")}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_shapes(seen) -> dict:
+    """Calls per kernel and shape of a ``record_launches`` run, labelled
+    with the heads of attention and the d_ff of the FFN."""
+    calls = {}
+    for (name, *shapes), rec in seen.items():
+        if name == "attention":
+            B, H, Lq, _ = shapes[0]
+            label = f"attention B{B} H{H} Lq{Lq} Lk{shapes[1][2]}"
+        else:
+            label = f"ffn N{shapes[0][0]} F{shapes[1][1]}" + (
+                " f32 out" if rec["args"][5] else "")
+        calls[label] = calls.get(label, 0) + rec["calls"]
+    return calls
+
+
+def traced_beam(dec, db):
+    """``dec.beam_batch(db)`` with every step of its loop kept on the
+    host: the carry going in, the step's log-probs and the carry coming
+    out. The decoder's own loop runs; ``decode.beam.beam_step`` is
+    wrapped for the call."""
+    import mtn_tpu_torch.decode.beam as beam_mod
+    orig, steps = beam_mod.beam_step, []
+
+    def kept_step(step, l, tok_buf, scores, comp_scores, *rest):
+        rec = dict(tok_in=tok_buf.cpu(), scores_in=scores.cpu(),
+                   comp_in=comp_scores.cpu())
+
+        def kept(cur, pos, kv):
+            logp, kv = step(cur, pos, kv)
+            rec["logp"] = logp.float().cpu()
+            return logp, kv
+        out = orig(kept, l, tok_buf, scores, comp_scores, *rest)
+        rec.update(tok_out=out[0].cpu(), comp_out=out[2].cpu(),
+                   comp_buf_out=out[3].cpu())
+        steps.append(rec)
+        return out
+    beam_mod.beam_step = kept_step
+    try:
+        res = dec.beam_batch(db)
+    finally:
+        beam_mod.beam_step = orig
+    return [[r.tokens, r.scores] for r in res], steps
+
+
+def trace_compare(torch, a, b, cfg) -> dict:
+    """Two step traces (:func:`traced_beam`) of one beam decode: ``a``
+    one process's, ``b`` a mesh's. A turn's step has the same inputs in
+    both while the turn's beams and n-best pools have been equal as sets;
+    on those steps each hypothesis' log-probs are compared over the whole
+    vocabulary, and so are its scores. The first step whose output
+    differs is the turn's divergence: there ``a``'s decision gap (the
+    last candidate kept against the first dropped, in the beam and in
+    the n-best pool) must lie within twice the largest difference of a
+    candidate's score between the runs (score plus log-prob), or the
+    parting is not a near tie flipped by roundings."""
+    from mtn_tpu_torch.data.vocab import SPECIALS
+    eos, unk = SPECIALS["<eos>"], SPECIALS["<unk>"]
+    beam, nbest = cfg.beam, cfg.nbest
+    turns = a[0]["tok_in"].shape[0]
+    T = min(len(a), len(b))
+    finite = -1e29
+
+    def pool(step, turn):
+        return sorted(tuple(r) for r, sc in zip(
+            step["comp_buf_out"][turn].tolist(),
+            step["comp_out"][turn].tolist()) if sc > finite)
+
+    alike, pairs, parted = set(range(turns)), [], []
+    for t in range(T):
+        ha = a[t]["tok_in"][:, :, :t + 1].tolist()
+        hb = b[t]["tok_in"][:, :, :t + 1].tolist()
+        for turn in sorted(alike):
+            rows = {}
+            for k, h in enumerate(hb[turn]):
+                rows.setdefault(tuple(h), []).append(k)
+            for k, h in enumerate(ha[turn]):
+                pairs.append((t, turn * beam + k,
+                              turn * beam + rows[tuple(h)].pop(0)))
+            outs = [sorted(tuple(r) for r in x[t]["tok_out"][turn][
+                :, :t + 2].tolist()) for x in (a, b)]
+            if outs[0] != outs[1] or pool(a[t], turn) != pool(b[t], turn):
+                parted.append((turn, t))
+                alike.discard(turn)
+    A = torch.stack([x["logp"] for x in a[:T]])
+    Bt = torch.stack([x["logp"] for x in b[:T]])
+    Sa = torch.stack([x["scores_in"].reshape(-1) for x in a[:T]])
+    Sb = torch.stack([x["scores_in"].reshape(-1) for x in b[:T]])
+    ti, ra, rb = (torch.tensor(v) for v in zip(*pairs))
+    dl = (A[ti, ra] - Bt[ti, rb]).abs().amax(dim=1)
+    ds = (Sa[ti, ra] - Sb[ti, rb]).abs()
+    rows = []
+    for turn, t in parted:
+        sel = (ti == t) & (ra // beam == turn)
+        diff = float((dl[sel] + ds[sel]).max())
+        s_in = Sa[t, turn * beam:(turn + 1) * beam]
+        lp = A[t, turn * beam:(turn + 1) * beam]
+        cand = s_in[:, None] + lp
+        cand[:, [eos, unk]] = -float("inf")
+        v = cand.reshape(-1).topk(beam + 1).values
+        gaps = [float(v[beam - 1] - v[beam])]
+        eos_sc = s_in + lp[:, eos] + cfg.penalty * (t + 1)
+        if t < cfg.min_len:
+            eos_sc = torch.full_like(eos_sc, -float("inf"))
+        p = torch.cat([a[t]["comp_in"][turn], eos_sc]).sort(
+            descending=True).values
+        if p[nbest] > finite:
+            gaps.append(float(p[nbest - 1] - p[nbest]))
+        rows.append(dict(turn=turn, step=t, gap=min(gaps), score_diff=diff,
+                         explained=min(gaps) <= 2 * diff))
+    return dict(steps=T, row_steps=len(pairs),
+                logp_max_abs_diff=float(dl.max()),
+                logp_bitwise_share=float((dl == 0).float().mean()),
+                score_max_abs_diff=float(ds.max()),
+                turns_parted=len(parted), parted=rows,
+                explained=all(r["explained"] for r in rows))
+
+
+def parallel_work(torch, ak, fk, corpus: dict, shardings, dev,
+                  f32: bool, trace: bool = False) -> dict:
+    """At the flagship width, both kernels on, the seeded weights:
+    PAR_STEPS bf16 train steps at run (b)'s settings (batch 8, dropout 0)
+    and one 32-turn beam decode with the main path's flags, under
+    ``shardings`` (None: one process); with ``f32`` the decode again in
+    f32. Each part's launches by kernel and by shape, counted from 0
+    just before it. With ``trace`` the bf16 decode once more, traced
+    step by step (:func:`traced_beam`), and under a model axis also with
+    each group of PAR_REPLICATED replicated (the other layers sharded)."""
+    import copy
+    from mtn_tpu_torch.config import DecodeConfig, TrainConfig
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.train.batch import to_device_fn
+    from mtn_tpu_torch.train.trainer import Trainer
+    from mtn_tpu_torch.weights import load_model
+
+    _, thb = train_batch(corpus, corpus["prefix"], 8)
+    dhb, _, _, cfg, sd = flagship_batch(corpus, 32)
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    cfg.dropout = cfg.attn_dropout = 0.0
+
+    def counted(fn):
+        box = []
+        ak.KERNEL.launches = fk.KERNEL.launches = 0
+        t0 = time.time()
+        seen = record_launches(ak, fk, lambda: box.append(fn()))
+        torch.cuda.synchronize()
+        return box[0], dict(
+            seconds=time.time() - t0,
+            launches={"attention": ak.KERNEL.launches,
+                      "ffn": fk.KERNEL.launches},
+            shapes=launch_shapes(seen))
+
+    def train():
+        tr = Trainer(copy.deepcopy(cfg), TrainConfig(warmup_steps=WARMUP),
+                     dev, shardings=shardings)
+        state = tr.state_from(sd)
+        db = to_device_fn("bfloat16", shardings, dev)(thb)
+        losses = []
+        for _ in range(PAR_STEPS):
+            state, m = tr.train_step(state, db, 1)
+            losses.append(m["loss"].item())
+        return losses
+
+    def decoder(dtype, sh):
+        c = copy.deepcopy(cfg)
+        c.dtype = dtype
+        model = load_model(c, sd, dev)
+        if sh is not None:
+            sh.shard_model(model)
+        dec = BeamDecoder(model, DecodeConfig(**PAR_DECODE), shardings=sh)
+        return dec, to_device_fn(dtype, sh, dev)(dhb)
+
+    def decode(dtype):
+        dec, db = decoder(dtype, shardings)
+        return [[r.tokens, r.scores] for r in dec.beam_batch(db)]
+
+    out = {}
+    out["losses"], out["train"] = counted(train)
+    out["nbest"], out["decode"] = counted(lambda: decode("bfloat16"))
+    if f32:
+        out["nbest_f32"], out["decode_f32"] = counted(
+            lambda: decode("float32"))
+    if trace:
+        out["nbest_traced"], out["trace"] = traced_beam(
+            *decoder("bfloat16", shardings))
+        if shardings is not None and shardings.model is not None:
+            from mtn_tpu_torch.parallel import Shardings, default_rules
+            for name, words in PAR_REPLICATED.items():
+                rep = Shardings(shardings.mesh, rules=[
+                    r for r in default_rules()
+                    if not any(w in r[0] for w in words)])
+                out[f"nbest_{name}_replicated"], \
+                    out[f"trace_{name}_replicated"] = traced_beam(
+                        *decoder("bfloat16", rep))
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, mesh: str,
+                  corpus: dict, out_dir: str, f32: bool,
+                  device: str = "cuda") -> None:
+    """One rank of a ``mesh`` ("DxM") world of ``world`` processes on
+    cuda:0 over gloo (NCCL puts one rank on a device): joins through the
+    port's Python API and writes :func:`parallel_work`'s result."""
+    import torch
+    from mtn_tpu_torch.ops import attention_kernel as ak
+    from mtn_tpu_torch.ops import ffn_kernel as fk
+    from mtn_tpu_torch.parallel import Shardings, make_mesh, multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multihost.initialize(f"localhost:{port}", world, rank,
+                               device=device, backend="gloo")
+    data, model = (int(v) for v in mesh.split("x"))
+    sh = Shardings(make_mesh(data=data, model=model, device_type=dev.type))
+    res = parallel_work(torch, ak, fk, corpus, sh, dev, f32, trace=f32)
+    for key in [k for k in res if k.startswith("trace")]:
+        trace = res.pop(key)   # step traces go to files of their own
+        if rank == 0:
+            torch.save(trace, os.path.join(out_dir,
+                                           f"parallel_{mesh}_{key}.pt"))
+    res.update(rank=rank, device=str(dev),
+               backend=torch.distributed.get_backend())
+    with open(os.path.join(out_dir, f"parallel_{mesh}_r{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def spawn_ranks(mesh: str, corpus: dict, out_dir: str, f32: bool,
+                device: str = "cuda"):
+    """The ranks of ``mesh`` as processes started with ``spawn``; fails
+    if one raises or all have not ended within PAR_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+    d, m = (int(v) for v in mesh.split("x"))
+    world = d * m
+    ctx = mp.start_processes(parallel_rank, nprocs=world, join=False,
+                             start_method="spawn", args=(
+                                 world, free_port(), mesh, corpus, out_dir,
+                                 f32, device))
+    t0 = time.time()
+    while not ctx.join(timeout=5):
+        if time.time() - t0 > PAR_TIMEOUT_S:
+            for p in ctx.processes:
+                p.terminate()
+            raise AssertionError(f"[parallel] {mesh}: the ranks did not "
+                                 f"end within {PAR_TIMEOUT_S} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"parallel_{mesh}_r{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def compare_nbest(got, want, margin: float) -> dict:
+    """Row by row: a row whose 1-best margin in ``want`` exceeds
+    ``margin`` must decode the same n-best tokens; a near-tied row's
+    1-best must be one of ``want``'s hypotheses within ``margin`` of its
+    1-best. Also whether the two are equal bit for bit, and the largest
+    score difference over hypotheses decoded alike."""
+    robust = diff = 0
+    ok = len(got) == len(want)
+    max_score = 0.0
+    for (gt, gs), (wt, ws) in zip(got, want):
+        m = ws[0] - ws[1] if len(ws) > 1 else float("inf")
+        if m > margin:
+            robust += 1
+            ok &= gt == wt
+        else:
+            ok &= gt[0] in [t for t, sc in zip(wt, ws) if ws[0] - sc <= margin]
+        diff += gt != wt
+        for a, sa in zip(gt, gs):
+            if a in wt:
+                max_score = max(max_score, abs(sa - ws[wt.index(a)]))
+    return dict(ok=bool(ok), bitwise=got == want, rows=len(want),
+                robust_rows=robust, rows_differing=diff,
+                max_score_diff=max_score)
+
+
+def nccl_world_of_one(corpus: dict, root: str, main_out: str) -> dict:
+    """``python -m mtn_tpu_torch.cli.generate --multihost
+    localhost:PORT,1,0``: the main path's decode in a NCCL world of one,
+    its result JSON against ``[main]``'s bytes."""
+    out = os.path.join(root, "result_nccl.json")
+    argv = [sys.executable, "-m", "mtn_tpu_torch.cli.generate",
+            *generate_argv(corpus, corpus["prefix"], out, *BEAM_FLAGS),
+            "--multihost", f"localhost:{free_port()},1,0"]
+    t0 = time.time()
+    proc = subprocess.run(argv, cwd=HERE, capture_output=True, text=True,
+                          timeout=PAR_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"[parallel] NCCL world of one exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    joined = [l for l in proc.stderr.splitlines()
+              if "joined the process group" in l]
+    with open(out, "rb") as a, open(main_out, "rb") as b:
+        same = a.read() == b.read()
+    return dict(seconds=time.time() - t0, log=joined[-1] if joined else None,
+                nccl="backend nccl" in "".join(joined),
+                bitwise_equal_to_main=same)
+
+
+def parallel_phase(torch, ak, fk, corpus: dict, root: str,
+                   main_out: str) -> dict:
+    """The parallel layer on one card: a NCCL world of one through the
+    real CLI, then two ranks on cuda:0 over gloo as a 2x1 (data) and a
+    1x2 (model) mesh, each against the same work in this process. Two
+    ranks on one card stage every collective through the host: none of
+    these times is a figure of multi-GPU scaling."""
+    from mtn_tpu_torch.config import DecodeConfig
+    res = {"nccl_world_of_one": nccl_world_of_one(corpus, root, main_out)}
+    t0 = time.time()
+    single = parallel_work(torch, ak, fk, corpus, None, torch.device("cuda"),
+                           f32=True, trace=True)
+    res["single"] = dict(losses=single["losses"], train=single["train"],
+                         decode=single["decode"], seconds=time.time() - t0)
+    ok = res["nccl_world_of_one"]["nccl"] and \
+        res["nccl_world_of_one"]["bitwise_equal_to_main"]
+    for mesh in ("2x1", "1x2"):
+        t0 = time.time()
+        ranks = spawn_ranks(mesh, corpus, root, f32=mesh == "1x2")
+        r0 = ranks[0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                      single["losses"]))
+        row = dict(
+            seconds=time.time() - t0, backend=r0["backend"],
+            devices=[r["device"] for r in ranks],
+            losses=[r["losses"] for r in ranks],
+            losses_equal_across_ranks=all(r["losses"] == r0["losses"]
+                                          for r in ranks),
+            loss_rel_diff=rel,
+            nbest_equal_across_ranks=all(r["nbest"] == r0["nbest"]
+                                         for r in ranks),
+            nbest=compare_nbest(r0["nbest"], single["nbest"],
+                                PAR_MARGIN["bfloat16"]),
+            train=[r["train"] for r in ranks],
+            decode=[r["decode"] for r in ranks])
+        good = row["losses_equal_across_ranks"] and rel <= PAR_LOSS_TOL \
+            and row["nbest_equal_across_ranks"]
+        for r in ranks:
+            for part in ("train", "decode"):
+                good &= min(r[part]["launches"].values()) > 0
+        if mesh == "2x1":
+            good &= row["nbest"]["ok"]
+        if mesh == "1x2":
+            # the n-best margin-aware is reported, not held: a beam can
+            # part at a near tie inside the search that its final margin
+            # does not show; the traces hold each parting to the rounding
+            dcfg = DecodeConfig(**PAR_DECODE)
+            for name in [""] + [f"_{k}_replicated" for k in PAR_REPLICATED]:
+                got = torch.load(os.path.join(
+                    root, f"parallel_{mesh}_trace{name}.pt"),
+                    weights_only=False)
+                row["trace" + name] = trace_compare(torch, single["trace"],
+                                                    got, dcfg)
+                row["trace" + name]["nbest"] = compare_nbest(
+                    r0["nbest" + (name or "_traced")], single["nbest"],
+                    PAR_MARGIN["bfloat16"])
+                del got
+            row["traced_equal_untraced"] = \
+                r0["nbest_traced"] == r0["nbest"] and \
+                single["nbest_traced"] == single["nbest"]
+            # the cause: with attention and the FFN replicated (their f32
+            # sums in one process's order) the decode is one process's
+            good &= row["traced_equal_untraced"] and \
+                row["trace"]["logp_max_abs_diff"] <= PAR_LOGP_TOL and \
+                row["trace"]["explained"] and \
+                row["trace_attention_ffn_replicated"]["nbest"]["bitwise"] \
+                and row["trace_attention_ffn_replicated"][
+                    "logp_bitwise_share"] == 1.0
+            f32 = compare_nbest(r0["nbest_f32"], single["nbest_f32"],
+                                PAR_MARGIN["float32"])
+            row["nbest_f32"] = f32
+            row["decode_f32"] = [r["decode_f32"] for r in ranks]
+            good &= f32["ok"] and f32["max_score_diff"] <= PAR_F32_TOL
+            # every launch on a rank's shard: 4 of 8 heads, d_ff 1024
+            labels = [k for r in ranks for part in ("train", "decode")
+                      for k in r[part]["shapes"]]
+            row["shard_shapes_only"] = all(
+                (" H4 " in k) if k.startswith("attention") else
+                (" F1024" in k and "f32 out" in k) for k in labels)
+            good &= row["shard_shapes_only"]
+        row["ok"] = bool(good)
+        res[mesh] = row
+        ok &= row["ok"]
+    res["ok"] = bool(ok)
+    return res
 
 
 def main() -> int:
@@ -2255,6 +2713,19 @@ def main() -> int:
         print(f"[profile] one warm turn batch (32 turns, beam 5, bf16): "
               f"{json.dumps(prof)}")
         phase_s["main"] = time.time() - t_phase
+
+        # the (data, model) mesh: NCCL world of one, two gloo ranks
+        t_phase = time.time()
+        par = parallel_phase(torch, ak, fk, corpus, root, out)
+        for key in ("nccl_world_of_one", "single", "2x1", "1x2"):
+            print(f"[parallel] {key} {json.dumps(par[key])}")
+        print("[parallel] two ranks on one card over gloo stage every "
+              "collective through the host: no time here is a figure of "
+              "multi-GPU scaling")
+        if not par["ok"]:
+            return fail("parallel: a check failed")
+        tp_launches = par["1x2"]["decode"][0]["launches"]
+        phase_s["parallel"] = time.time() - t_phase
 
         # the other decode modes, ranking and stage-4 scoring
         t_phase = time.time()
@@ -2394,15 +2865,21 @@ def main() -> int:
         phase_s["train"] = time.time() - t_phase
     print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 
-    def pick(kernel, shape):
+    def pick(kernel, shape, f32_out=False):
         return next(r for r in rows if r["kernel"] == kernel and
-                    r["dtype"] == "bfloat16" and r["shape"] == shape)
+                    r["dtype"] == "bfloat16" and r["shape"] == shape and
+                    r.get("f32_out", False) == f32_out)
     heads = [
         ("attention", "cuda", "mtn_tpu_torch/csrc/attention.cu",
          "mtn_tpu/ops/pallas_attention.py:56", pick("attention",
                                                     [32, 8, 32, 64, 64])),
         ("ffn", "cuda", "mtn_tpu_torch/csrc/ffn.cu",
          "mtn_tpu/ops/pallas_ffn.py:42", pick("ffn", [160, 512, 2048])),
+    ]
+    # a --mesh-model 2 rank's shapes, launched per rank in [parallel] 1x2
+    tp_heads = [
+        ("attention", pick("attention", [32, 4, 32, 64, 64])),
+        ("ffn", pick("ffn", [160, 512, 1024], f32_out=True)),
     ]
     kernels = [dict(name=name, route=route, source=src, replaces=rep,
                     launches=launches[name],
@@ -2421,6 +2898,17 @@ def main() -> int:
                     plain_device_us=r["plain_device_us"],
                     library_device_us=r["library_device_us"])
                for name, route, src, rep, r in heads]
+    kernels += [dict(name=name, route="cuda", source=k["source"],
+                     replaces=k["replaces"], path="parallel 1x2 decode, "
+                     "rank 0", shape=r["shape"],
+                     launches=tp_launches[name],
+                     max_abs_err=r["max_abs_err"], ms=r["ms"],
+                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                     bound_by=r["bound_by"], library_ms=r["library_ms"],
+                     device_us=r["device_us"],
+                     plain_device_us=r["plain_device_us"],
+                     library_device_us=r["library_device_us"])
+                for (name, r), k in zip(tp_heads, kernels)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Shared CLI plumbing: the flag surface of ``mtn_tpu/cli/common.py`` plus
-``--device``, and the refusal of flags whose paths are not ported yet
-(each names its ROADMAP item): the multi-device ones."""
+``--device``, and the parallel set-up of a run (``--multihost``,
+``--mesh-data``, ``--mesh-model``)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import argparse
 import logging
 
 import torch
+
+log = logging.getLogger(__name__)
 
 
 def add_logging_args(parser: argparse.ArgumentParser):
@@ -35,10 +37,9 @@ def add_device_args(parser: argparse.ArgumentParser):
                         choices=["float32", "bfloat16"],
                         help="compute dtype")
     parser.add_argument("--mesh-data", default=-1, type=int,
-                        help="data-parallel size; only one device (-1 or "
-                             "1) is ported")
+                        help="data-parallel mesh axis size (-1: all ranks)")
     parser.add_argument("--mesh-model", default=1, type=int,
-                        help="tensor-parallel size; only 1 is ported")
+                        help="tensor-parallel mesh axis size")
     parser.add_argument("--feature-transfer", default="",
                         choices=["", "bfloat16", "int8"],
                         help="host->device feature precision (default: the "
@@ -68,16 +69,45 @@ def add_device_args(parser: argparse.ArgumentParser):
                              "host sync per train step)")
 
 
-def check_unported(args: argparse.Namespace) -> None:
-    """Refuse flags whose paths the port does not run yet."""
-    refused = []
+def make_mesh_from_args(args, batch_size: int = 0, device_type=None):
+    """(mesh, shardings) of the mesh flags over the world's ranks, or
+    (None, None) for one device, as ``mtn_tpu``'s. The mesh takes every
+    rank, so where ``batch_size`` does not divide over the data axis this
+    raises (JAX fits the data axis to the batch on fewer devices)."""
+    from mtn_tpu_torch.parallel import Shardings, make_mesh
+    from mtn_tpu_torch.parallel.mesh import world_size
+    n = world_size()
+    if args.mesh_model <= 1 and (args.mesh_data in (-1, 1) or n == 1):
+        if n == 1 or args.mesh_data == 1:
+            return None, None  # single device: skip mesh machinery
+    model = max(args.mesh_model, 1)
+    data = args.mesh_data
+    if data == -1:
+        if n % model:
+            raise AssertionError(f"{n} devices not divisible by "
+                                 f"model={model}")
+        data = n // model
+    if batch_size > 0 and batch_size % data:
+        raise ValueError(f"the batch size {batch_size} does not divide over "
+                         f"{data} data-parallel ranks")
+    mesh = make_mesh(data=data, model=model, device_type=device_type)
+    return mesh, Shardings(mesh)
+
+
+def init_parallel(args, batch_size: int = 0):
+    """This run's device and shardings: ``--device``, or under
+    ``--multihost`` this rank's device once the process group is joined;
+    then the mesh of :func:`make_mesh_from_args` (shardings None on one
+    device)."""
+    device = resolve_device(args.device)
     if getattr(args, "multihost", ""):
-        refused.append("--multihost (ROADMAP: parallel)")
-    if args.mesh_data not in (-1, 1) or args.mesh_model != 1:
-        refused.append("mesh sizes > 1 (ROADMAP: parallel)")
-    if refused:
-        raise NotImplementedError("not ported to mtn_tpu_torch yet: "
-                                  + ", ".join(refused))
+        from mtn_tpu_torch.parallel.multihost import initialize_from_flag
+        device = initialize_from_flag(args.multihost, device=str(device))
+    mesh, shardings = make_mesh_from_args(args, batch_size, device.type)
+    if mesh is not None:
+        log.info("running under mesh %s", dict(zip(
+            mesh.mesh_dim_names, mesh.shape)))
+    return device, shardings
 
 
 def resolve_device(name: str) -> torch.device:

@@ -14,6 +14,12 @@ mtn_tpu_torch.cli.evaluate`` (run.sh stage 4). The checkpoint is the
 port's format (``mtn_tpu_torch/weights.py``; a JAX checkpoint enters it
 through ``mtn_tpu_torch.utils.import_flax``). A producer thread builds and
 uploads the next batches while the device decodes.
+
+Under ``--multihost`` (``auto`` for ``torchrun``, or
+``host:port,nprocs,procid``) every rank runs this command: the turn
+batches are cut over the ``data`` ranks (``--mesh-data``), the model over
+the ``model`` ranks (``--mesh-model``), the results are gathered, and
+rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -70,7 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "quantize.py); 'int8-fp-head' keeps the vocab "
                              "head full precision; default full precision")
     parser.add_argument("--multihost", default="", type=str,
-                        help="not ported")
+                        help="'auto' (torchrun's environment) or "
+                             "'host:port,nprocs,procid': join a multi-"
+                             "process run; turn batches shard over the "
+                             "data ranks, results are gathered, rank 0 "
+                             "writes (mtn_tpu_torch/parallel/multihost.py)")
     parser.add_argument("--stats-output", default="", type=str,
                         help="write decode statistics (turns, seconds, "
                              "responses/sec, mean beam exit step) as JSON")
@@ -92,18 +102,21 @@ def _split_model_arg(model: str):
 
 def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
                        feature_dtype="float32", ref_data=None,
-                       log_hyps=True):
+                       log_hyps=True, shardings=None):
     """Decode every turn; returns ``(result, stats)``: the reference-format
     result dict (deep-copied dialogs with the 1-best hypothesis in place of
-    each answer) and a dict of decode statistics."""
+    each answer) and a dict of decode statistics. With ``shardings`` each
+    rank decodes its rows of every batch and every rank gets the whole
+    result."""
     from mtn_tpu_torch.data.batching import (make_batch, make_batch_indices,
                                              uniform_plans)
     from mtn_tpu_torch.data.vocab import vocab_list
     from mtn_tpu_torch.decode.beam import BeamDecoder, detokenize
-    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.train.batch import to_device_fn
 
     vlist = vocab_list(vocab)
-    decoder = BeamDecoder(model, decode_cfg)
+    decoder = BeamDecoder(model, decode_cfg, shardings=shardings)
+    to_device = to_device_fn(feature_dtype, shardings, device)
     plans, n = make_batch_indices(dataset, batchsize=decode_cfg.turn_batch,
                                   max_length=10 ** 9,
                                   separate_caption=data_cfg.separate_caption)
@@ -123,7 +136,7 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
                                 length_bucket=data_cfg.length_bucket,
                                 feature_bucket=data_cfg.feature_bucket,
                                 pad_rows_to=decode_cfg.turn_batch)
-                q.put((plan, device_batch(hb, device, feature_dtype)))
+                q.put((plan, to_device(hb)))
         except BaseException as e:  # re-raised by the consumer below
             err.append(e)
         finally:
@@ -137,8 +150,9 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
         if decode_cfg.decode_style == "beam_search":
             raw = decoder.beam_batch_raw(db)
             steps.append(raw.n_steps)
+            valid = decoder.gather_rows(db.valid)
             for qa_id, res in zip(plan.qa_ids,
-                                  decoder.beam_results(raw, db.valid)):
+                                  decoder.beam_results(raw, valid)):
                 nbest[qa_id] = res.texts(vlist, vocab["<eos>"])
                 answers[qa_id] = detokenize(res.tokens[0], vlist,
                                             vocab["<eos>"])
@@ -196,12 +210,11 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mtn_tpu_torch.cli.common import (check_unported, print_args,
-                                          resolve_device, setup_logging)
+    from mtn_tpu_torch.cli.common import (init_parallel, print_args,
+                                          setup_logging)
     setup_logging(args.verbose)
     print_args(args)
-    device = resolve_device(args.device)
-    check_unported(args)
+    device, shardings = init_parallel(args, args.turn_batch)
     import torch
     from mtn_tpu_torch.config import DecodeConfig, config_from_dict
     from mtn_tpu_torch.data.dataset import load
@@ -241,6 +254,10 @@ def main(argv=None):
         log.info("quantizing decode weights: %s", args.weights_quant)
         quantize_model(model, state_dict,
                        skip_generator=args.weights_quant == "int8-fp-head")
+    if shardings is not None:
+        # each rank keeps its slabs (replicated under pure data
+        # parallelism); int8 scales follow their kernels' output axis
+        shardings.shard_model(model)
 
     decode_cfg = DecodeConfig(
         maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
@@ -260,15 +277,18 @@ def main(argv=None):
     result, stats = generate_responses(
         model, test_data, decode_cfg, data_cfg, vocab, device,
         feature_dtype=args.feature_transfer or model_cfg.dtype,
-        ref_data=ref_data, log_hyps=args.verbose >= 1)
-    if args.output:
+        ref_data=ref_data, log_hyps=args.verbose >= 1, shardings=shardings)
+    from mtn_tpu_torch.parallel.multihost import is_primary, shutdown
+    # every rank holds the whole (gathered) result; rank 0 writes it
+    if args.output and is_primary():
         log.info("writing results to %s", args.output)
         with open(args.output, "w") as f:
             json.dump(result, f, indent=4)
-    if args.stats_output:
+    if args.stats_output and is_primary():
         with open(args.stats_output, "w") as f:
             json.dump(stats, f, indent=2)
     log.info("done")
+    shutdown()
     return 0
 
 

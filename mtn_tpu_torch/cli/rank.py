@@ -19,7 +19,9 @@ lines and written into the output JSON, beside each turn's ``scores``
 (one log-likelihood per option, input order) and ``gt_rank``. Turns go in
 length-sorted uniform-shape batches through ``BeamDecoder.rank_batch``,
 with the (N, L) candidate buckets at the global maxima, as in JAX. The
-checkpoint is the port's format (``mtn_tpu_torch/weights.py``).
+checkpoint is the port's format (``mtn_tpu_torch/weights.py``). Under
+``--multihost`` the turn batches are cut over the data ranks and the
+model over the model ranks, as in ``cli.generate``; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -56,7 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="score the answer+<eos> event the generative "
                              "loss trains (0: bare token sequence)")
     parser.add_argument("--multihost", default="", type=str,
-                        help="not ported")
+                        help="'auto' (torchrun's environment) or "
+                             "'host:port,nprocs,procid': join a multi-"
+                             "process run; turn batches shard over the "
+                             "data ranks, scores are gathered, rank 0 "
+                             "writes (mtn_tpu_torch/parallel/multihost.py)")
     add_device_args(parser)
     add_logging_args(parser)
     return parser
@@ -106,15 +112,17 @@ def _align_candidates(dataset, cand_data, undisclosed: bool):
 
 def rank_dataset(model, dataset, turn_cands, data_cfg, vocab, device,
                  turn_batch: int = 4, include_eos: bool = True,
-                 feature_dtype: str = "float32"):
+                 feature_dtype: str = "float32", shardings=None):
     """Score every turn's options; returns (scores per qa_id, wall, n):
-    one ``[logp, ...]`` per qa_id, in option order."""
+    one ``[logp, ...]`` per qa_id, in option order. With ``shardings``
+    each rank scores its rows of every batch and every rank gets every
+    score."""
     from mtn_tpu_torch.config import DecodeConfig
     from mtn_tpu_torch.data.batching import (make_batch, make_batch_indices,
                                              uniform_plans)
     from mtn_tpu_torch.data.vocab import words2ids
     from mtn_tpu_torch.decode.beam import BeamDecoder
-    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.train.batch import to_device_fn
 
     # words2ids wraps with <sos>/<eos>; rank_batch supplies its own <sos>
     # input and <eos> target, so strip both
@@ -123,7 +131,9 @@ def rank_dataset(model, dataset, turn_cands, data_cfg, vocab, device,
     n_opts = max(len(t) for t in tok)
     max_len = max((len(o) for t in tok for o in t), default=0) \
         + (1 if include_eos else 0)
-    decoder = BeamDecoder(model, DecodeConfig(turn_batch=turn_batch))
+    decoder = BeamDecoder(model, DecodeConfig(turn_batch=turn_batch),
+                          shardings=shardings)
+    to_device = to_device_fn(feature_dtype, shardings, device)
     plans, n = make_batch_indices(dataset, batchsize=turn_batch,
                                   max_length=10 ** 9,
                                   separate_caption=data_cfg.separate_caption)
@@ -138,9 +148,10 @@ def rank_dataset(model, dataset, turn_cands, data_cfg, vocab, device,
                         length_bucket=data_cfg.length_bucket,
                         feature_bucket=data_cfg.feature_bucket,
                         pad_rows_to=turn_batch)
-        db = device_batch(hb, device, feature_dtype)
+        db = to_device(hb)
+        # a candidate row for every row of the whole batch
         cands = [tok[plan.qa_ids[b]] if b < len(plan.qa_ids) else []
-                 for b in range(db.query.shape[0])]
+                 for b in range(hb.query.shape[0])]
         out = decoder.rank_batch(db, cands, include_eos=include_eos,
                                  len_bucket=max(max_len, 1),
                                  cand_bucket=max(n_opts, 1))
@@ -152,12 +163,11 @@ def rank_dataset(model, dataset, turn_cands, data_cfg, vocab, device,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mtn_tpu_torch.cli.common import (check_unported, print_args,
-                                          resolve_device, setup_logging)
+    from mtn_tpu_torch.cli.common import (init_parallel, print_args,
+                                          setup_logging)
     setup_logging(args.verbose)
     print_args(args)
-    device = resolve_device(args.device)
-    check_unported(args)
+    device, shardings = init_parallel(args, args.turn_batch)
     import torch
     from mtn_tpu_torch.cli.generate import _split_model_arg
     from mtn_tpu_torch.config import config_from_dict
@@ -196,11 +206,14 @@ def main(argv=None):
     state_dict, used_epoch = load_checkpoint(prefix, epoch)
     model = load_model(model_cfg, state_dict, device)
     log.info("Restored checkpoint epoch %s on %s", used_epoch, device)
+    if shardings is not None:
+        shardings.shard_model(model)
     log.info("--------------------rank--------------------")
     all_scores, wall, n = rank_dataset(
         model, test_data, turn_cands, data_cfg, vocab, device,
         turn_batch=args.turn_batch, include_eos=bool(args.include_eos),
-        feature_dtype=args.feature_transfer or model_cfg.dtype)
+        feature_dtype=args.feature_transfer or model_cfg.dtype,
+        shardings=shardings)
     n_scored = sum(len(s) for s in all_scores)
     log.info("scored %d options over %d turns in %.2fs (%.1f options/sec)",
              n_scored, n, wall, n_scored / max(wall, 1e-9))
@@ -225,11 +238,14 @@ def main(argv=None):
         log.warning("gt_index present on %d/%d turns — retrieval metrics "
                     "need all of them; emitting per-turn gt_rank only",
                     len(gt_ranks), len(turn_cands))
-    if args.output:
+    from mtn_tpu_torch.parallel.multihost import is_primary, shutdown
+    # every rank holds every score; rank 0 writes them
+    if args.output and is_primary():
         log.info("writing ranks to %s", args.output)
         with open(args.output, "w") as f:
             json.dump(result, f, indent=4)
     log.info("done")
+    shutdown()
     return 0
 
 

@@ -16,8 +16,10 @@ feature blocks from a write-once cache after their first read,
 ``--async-save 1`` writes checkpoints on a background thread,
 ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run and
 ``--nan-checks 1`` raises at the first step whose loss or gradients are
-not finite. The multi-device flags raise ``NotImplementedError`` naming
-their ROADMAP item.
+not finite. Under ``--multihost`` every rank runs this command: each
+batch's rows are cut over the ``data`` ranks, the model over the
+``model`` ranks, and rank 0 alone writes the logs, the sidecars and the
+checkpoints (full tensors, loadable on one device).
 """
 
 from __future__ import annotations
@@ -110,7 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pad every batch to the dataset's global "
                              "maxima")
     parser.add_argument("--multihost", default="", type=str,
-                        help="not ported")
+                        help="'auto' (torchrun's environment) or "
+                             "'host:port,nprocs,procid': join a multi-"
+                             "process run; each rank uploads its data-"
+                             "parallel rows of every batch "
+                             "(mtn_tpu_torch/parallel/multihost.py)")
     add_device_args(parser)
     add_logging_args(parser)
     return parser
@@ -118,19 +124,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mtn_tpu_torch.cli.common import (check_unported, print_args,
-                                          resolve_device, setup_logging)
+    from mtn_tpu_torch.cli.common import (init_parallel, print_args,
+                                          setup_logging)
     setup_logging(args.verbose)
     print_args(args)
-    device = resolve_device(args.device)
-    check_unported(args)
+    from mtn_tpu_torch.parallel.mesh import world_size
+    device, shardings = init_parallel(args, args.batch_size)
     import torch
     from mtn_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
     from mtn_tpu_torch.data.batching import make_batch_indices, uniform_plans
     from mtn_tpu_torch.data.dataset import load
     from mtn_tpu_torch.data.pipeline import BatchIterator, shuffled
     from mtn_tpu_torch.data.vocab import get_vocabulary
-    from mtn_tpu_torch.train.batch import accumulated, device_batch
+    from mtn_tpu_torch.parallel.multihost import is_primary, shutdown
+    from mtn_tpu_torch.train.batch import accumulated, to_device_fn
     from mtn_tpu_torch.train.trainer import EarlyStopper, Trainer
     from mtn_tpu_torch.utils import profiling
     from mtn_tpu_torch.utils.checkpoint import CheckpointManager
@@ -213,6 +220,9 @@ def main(argv=None):
         raise SystemExit("--accum-steps > 1 requires --uniform-shapes 1 "
                          "(as in mtn_tpu, whose accumulation groups stack "
                          "equal-shape batches)")
+    if args.accum_steps > 1 and world_size() > 1:
+        raise SystemExit("--accum-steps is not supported with --multihost "
+                         "(as in mtn_tpu)")
     # run_epoch counts updates under accumulation: the batch-unit cadences
     # are divided by accum so they keep firing at about the same batches
     report_every = max(1, args.report_interval // args.accum_steps)
@@ -227,12 +237,16 @@ def main(argv=None):
         patience=args.patience)
 
     trainer = Trainer(model_cfg, train_cfg, device,
-                      nan_checks=bool(args.nan_checks))
+                      nan_checks=bool(args.nan_checks), shardings=shardings)
+    primary = is_primary()
     os.makedirs(os.path.dirname(args.model) or ".", exist_ok=True)
-    ckpt = CheckpointManager(args.model, async_save=bool(args.async_save))
+    ckpt = CheckpointManager(args.model, async_save=bool(args.async_save),
+                             layout=trainer.layout)
     ckpt.save_conf(vocab, model=model_cfg, data=data_cfg, train=train_cfg)
-    dump_params_txt(args.model + "_params.txt", vars(args))
-    logs = TraceLogger(args.model, resume=bool(args.resume))
+    if primary:
+        dump_params_txt(args.model + "_params.txt", vars(args))
+    logs = TraceLogger(args.model, resume=bool(args.resume),
+                       primary=primary)
     log.info("Saving training results to %s", logs.train_csv.path)
 
     state = trainer.init_state(args.rand_seed)
@@ -251,7 +265,7 @@ def main(argv=None):
         start_epoch = int(ep)
         log.info("Resumed from epoch %d (step %d)", start_epoch, state.step)
 
-    to_device = lambda hb: device_batch(hb, device, data_cfg.feature_dtype)
+    to_device = to_device_fn(data_cfg.feature_dtype, shardings, device)
     log.info("----------------")
     log.info("Start training")
     log.info("----------------")
@@ -315,6 +329,7 @@ def main(argv=None):
             log.info("----------------")
     ckpt.flush()   # async: the last save durable and in meta.json
     log.info("the best model is epoch %d.", bestmodel_num)
+    shutdown()
     return 0
 
 

@@ -57,6 +57,13 @@
 // f32 keeps full f32 products on the CUDA cores (no TF32), reading the
 // weights straight from global memory, with the same slices and the same
 // cluster reduction.
+//
+// Output type. y is stored in x's type, or with out_f32 in f32 whatever
+// x's type: a tensor-parallel rank holds a d_ff slice of W1 and W2 (the
+// Megatron column/row pair of mtn_tpu/parallel/sharding.py), and its y
+// is a partial sum that the ranks add in f32 before rounding, as the
+// single-device kernel adds its cluster's partials in f32 before it
+// rounds (the caller then passes b2 = 0 and adds b2 once, after the sum).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -216,10 +223,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // reading them through distributed shared memory, adds b2, casts and
 // stores the rows below N. No partial leaves the chip and no atomics are
 // used, so the result is deterministic.
-template <int ROWS, typename T>
+template <int ROWS, typename T, typename O>
 __device__ __forceinline__ void cluster_reduce(float* ps,
                                                const T* __restrict__ b2,
-                                               T* __restrict__ out, int N,
+                                               O* __restrict__ out, int N,
                                                int D) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -249,11 +256,11 @@ __device__ __forceinline__ void cluster_reduce(float* ps,
         s.w += v[q].w;
       }
     }
-    T* o = out + static_cast<size_t>(r0 + r) * D + c;
-    o[0] = from_f32<T>(s.x + to_f32(b2[c]));
-    o[1] = from_f32<T>(s.y + to_f32(b2[c + 1]));
-    o[2] = from_f32<T>(s.z + to_f32(b2[c + 2]));
-    o[3] = from_f32<T>(s.w + to_f32(b2[c + 3]));
+    O* o = out + static_cast<size_t>(r0 + r) * D + c;
+    o[0] = from_f32<O>(s.x + to_f32(b2[c]));
+    o[1] = from_f32<O>(s.y + to_f32(b2[c + 1]));
+    o[2] = from_f32<O>(s.z + to_f32(b2[c + 2]));
+    o[3] = from_f32<O>(s.w + to_f32(b2[c + 3]));
   }
   cluster.sync();  // no block leaves while its partial is still being read
 }
@@ -264,10 +271,11 @@ __device__ __forceinline__ void cluster_reduce(float* ps,
 // issued while the consumers compute, and they refill stage s once all 8
 // consumer warps have arrived on empty[s]. A single producer warp issued
 // too slowly to keep the ring full.
+template <typename O>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
     ffn_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, bf16* __restrict__ out, int N,
+                    const bf16* __restrict__ b2, O* __restrict__ out, int N,
                     int D, int F) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -526,8 +534,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   cluster_reduce<TM>(ps, b2, out, N, D);
 }
 
-template <typename T>
-int launch(void (*kern)(const T*, const T*, const T*, const T*, const T*, T*,
+template <typename T, typename O>
+int launch(void (*kern)(const T*, const T*, const T*, const T*, const T*, O*,
                         int, int, int),
            int threads, const void* x, const void* w1, const void* b1,
            const void* w2, const void* b2, void* out, int N, int D, int F,
@@ -560,24 +568,29 @@ int launch(void (*kern)(const T*, const T*, const T*, const T*, const T*, T*,
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), N, D, F));
+      static_cast<const T*>(b2), static_cast<O*>(out), N, D, F));
 }
 
 }  // namespace
 
-// x (N, D), w1 (D, F), b1 (F), w2 (F, D), b2 (D), out (N, D): contiguous,
-// one type (f32 or bf16), pointers 32-byte aligned. Needs D % 16 == 0 and
-// F % 256 == 0. One launch; returns its cudaError_t (0 on success).
+// x (N, D), w1 (D, F), b1 (F), w2 (F, D), b2 (D): contiguous, one type
+// (f32 or bf16); out (N, D) contiguous, of that type or, with out_f32,
+// f32; pointers 32-byte aligned. Needs D % 16 == 0 and F % 256 == 0. One
+// launch; returns its cudaError_t (0 on success).
 extern "C" int mtn_ffn(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* out, int N,
-                       int D, int F, int is_bf16, void* stream) {
+                       int D, int F, int is_bf16, int out_f32,
+                       void* stream) {
   if (N <= 0 || D <= 0 || F <= 0 || D % 16 != 0 || F % FS != 0 ||
       (N + TM - 1) / TM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && out_f32)
+    return launch<bf16, float>(ffn_bf16_kernel<float>, BF16_THREADS, x, w1,
+                               b1, w2, b2, out, N, D, F, s);
   if (is_bf16)
-    return launch<bf16>(ffn_bf16_kernel, BF16_THREADS, x, w1, b1, w2, b2, out,
-                        N, D, F, s);
-  return launch<float>(ffn_f32_kernel, THREADS, x, w1, b1, w2, b2, out, N, D,
-                       F, s);
+    return launch<bf16, bf16>(ffn_bf16_kernel<bf16>, BF16_THREADS, x, w1, b1,
+                              w2, b2, out, N, D, F, s);
+  return launch<float, float>(ffn_f32_kernel, THREADS, x, w1, b1, w2, b2, out,
+                              N, D, F, s);
 }

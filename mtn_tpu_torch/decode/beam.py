@@ -28,6 +28,17 @@ Gumbel noise. The noise of step ``l`` comes from a generator on the
 batch's device seeded with a 64-bit mix of (``sample_seed``, fold, l), so
 a draw depends on the position, not on how many steps ran: early stop
 and streaming cannot change it. The draws are not JAX's bit for bit.
+
+Under a mesh (``shardings``): each data rank decodes its rows of the
+turn batch (``Shardings.put_host_batch``), and the results are gathered
+so that every rank holds the whole batch's, as JAX's ``_gather``
+(``valid`` rows through :meth:`BeamDecoder.gather_rows`). A rank's loop
+stops when its own rows are done: a row that the early-stop test has
+closed cannot change, so the rows equal the single-device decode's.
+Sampling draws the whole batch's noise and takes this rank's rows of it,
+so a sample does not depend on the mesh. Under ``model`` every rank
+runs the same rows on the same gathered log-probs, so their loops take
+the same decisions.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from mtn_tpu_torch.decode.steps import (NEG_INF, BeamResult,  # noqa: F401
                                         rank_inputs, rank_step,
                                         sample_transform, token_step, top_k)
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
+from mtn_tpu_torch.parallel.collectives import gather_rows
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
 
 
@@ -68,10 +80,22 @@ class BeamRaw:
 class BeamDecoder:
     def __init__(self, model: MTN, decode_cfg: DecodeConfig,
                  pad: int = SPECIALS["<blank>"], sos: int = SPECIALS["<sos>"],
-                 eos: int = SPECIALS["<eos>"], unk: int = SPECIALS["<unk>"]):
+                 eos: int = SPECIALS["<eos>"], unk: int = SPECIALS["<unk>"],
+                 shardings=None):
         self.model = model
         self.cfg = decode_cfg
         self.pad, self.sos, self.eos, self.unk = pad, sos, eos, unk
+        self.data = shardings.data if shardings is not None else None
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rows of every data rank (``t`` itself without a data
+        axis)."""
+        return t if self.data is None else gather_rows(t, self.data)
+
+    def _local(self, B: int) -> slice:
+        """This data rank's rows among the whole batch's."""
+        r = self.data.rank if self.data is not None else 0
+        return slice(r * B, (r + 1) * B)
 
     def _decode_state(self, batch: DeviceBatch) -> DecodeState:
         masks, _ = batch_masks(batch, self.pad)
@@ -120,7 +144,7 @@ class BeamDecoder:
             *carry, self_kv = beam_step(step, pos[l], *carry, self_kv, cfg,
                                         self.eos, self.unk)
             n_steps = l + 1
-        return BeamRaw(carry[2], carry[3], carry[4], n_steps)
+        return BeamRaw(*map(self.gather_rows, carry[2:5]), n_steps)
 
     @staticmethod
     def beam_results(raw: BeamRaw, valid) -> List[BeamResult]:
@@ -131,7 +155,8 @@ class BeamDecoder:
 
     def beam_batch(self, batch: DeviceBatch) -> List[BeamResult]:
         """Beam-decode every row; one BeamResult per *valid* row."""
-        return self.beam_results(self.beam_batch_raw(batch), batch.valid)
+        return self.beam_results(self.beam_batch_raw(batch),
+                                 self.gather_rows(batch.valid))
 
     # ------------------------------------------------------------------
     def sample_transform(self, logp: torch.Tensor) -> torch.Tensor:
@@ -147,16 +172,17 @@ class BeamDecoder:
         if style == "greedy" or self.cfg.temperature <= 0.0:
             return lambda l: None
         seed, V = self.cfg.sample_seed, self.model.cfg.vocab_size
-        return lambda l: gumbel_uniforms((B, V), draw_seed(seed, fold, l),
-                                         device)
+        rows = B * (self.data.size if self.data is not None else 1)
+        return lambda l: gumbel_uniforms((rows, V), draw_seed(seed, fold, l),
+                                         device)[self._local(B)]
 
     @torch.inference_mode()
     def _token_loop(self, batch: DeviceBatch, style: str,
                     fold: int) -> torch.Tensor:
         """(B, maxlen+1) tokens with the <sos> prefix, one
-        :func:`token_step` per position; with early_stop the loop ends
-        once every row has emitted <eos> (tokens after a row's first
-        <eos> are never read)."""
+        :func:`token_step` per position, gathered over the data ranks;
+        with early_stop the loop ends once every row has emitted <eos>
+        (tokens after a row's first <eos> are never read)."""
         maxlen = self.cfg.maxlen
         dev = batch.query.device
         B = batch.query.shape[0]
@@ -172,7 +198,7 @@ class BeamDecoder:
                 break
             toks[:, l + 1] = token_step(step, pos[l], toks[:, l], self_kv,
                                         uniforms(l), self.cfg)
-        return toks
+        return self.gather_rows(toks)
 
     def greedy_tokens(self, batch: DeviceBatch) -> torch.Tensor:
         return self._token_loop(batch, "greedy", 0)
@@ -185,13 +211,14 @@ class BeamDecoder:
 
     def greedy_batch(self, batch: DeviceBatch) -> List[List[int]]:
         """Greedy-decode every row; tokens after <sos>, cut at <eos>."""
-        return cut_rows(self.greedy_tokens(batch), batch.valid, self.eos)
+        return cut_rows(self.greedy_tokens(batch),
+                        self.gather_rows(batch.valid), self.eos)
 
     def sample_batch(self, batch: DeviceBatch,
                      fold: int = 0) -> List[List[int]]:
         """Sample one continuation per row (``greedy_batch``'s output)."""
-        return cut_rows(self.sample_tokens(batch, fold), batch.valid,
-                        self.eos)
+        return cut_rows(self.sample_tokens(batch, fold),
+                        self.gather_rows(batch.valid), self.eos)
 
     # -- streaming ------------------------------------------------------
     def stream_tokens(self, batch: DeviceBatch, style: str = "greedy",
@@ -205,6 +232,9 @@ class BeamDecoder:
         if style not in ("greedy", "sample"):
             raise ValueError(f"stream_tokens: style {style!r} "
                              "(beam n-bests cannot stream)")
+        if self.data is not None:
+            raise RuntimeError("stream_tokens is single-rank serving "
+                               "(per-step host reads)")
         dev = batch.query.device
         B = batch.query.shape[0]
         with torch.inference_mode():
@@ -263,18 +293,21 @@ class BeamDecoder:
         raw = self.rank_batch_raw(batch, candidates, include_eos=include_eos,
                                   len_bucket=len_bucket,
                                   cand_bucket=cand_bucket)
-        return self.rank_results(raw, batch.valid)
+        return self.rank_results(raw, self.gather_rows(batch.valid))
 
     def rank_batch_raw(self, batch: DeviceBatch,
                        candidates: Sequence[Sequence[Sequence[int]]],
                        include_eos: bool = True, len_bucket: int = 8,
                        cand_bucket: int = 8
                        ) -> Tuple[Optional[torch.Tensor], List[int]]:
-        """(device scores (B, N) or None, candidate count per row)."""
+        """(device scores (B, N) or None, candidate count per row). Under
+        a data axis ``candidates`` has a row for every row of the whole
+        batch, and the scores are the whole batch's."""
         B = batch.query.shape[0]
-        if len(candidates) != B:
+        rows = B * (self.data.size if self.data is not None else 1)
+        if len(candidates) != rows:
             raise ValueError(
-                f"candidates has {len(candidates)} rows, batch has {B}")
+                f"candidates has {len(candidates)} rows, batch has {rows}")
         n_counts = [len(c) for c in candidates]
         n_max = max(n_counts, default=0)
         if n_max == 0:
@@ -283,16 +316,18 @@ class BeamDecoder:
         l_max = max((len(t) for c in candidates for t in c), default=0) + extra
         N = max(_round_up_int(n_max, cand_bucket), 1)
         L = max(_round_up_int(max(l_max, 1), len_bucket), 1)
-        cand = np.full((B, N, L), self.pad, np.int64)
-        clen = np.zeros((B, N), np.int64)
+        cand = np.full((rows, N, L), self.pad, np.int64)
+        clen = np.zeros((rows, N), np.int64)
         for b, cands in enumerate(candidates):
             for n, toks in enumerate(cands):
                 toks = list(toks) + ([self.eos] if include_eos else [])
                 cand[b, n, :len(toks)] = toks
                 clen[b, n] = len(toks)
         dev = batch.query.device
-        return (self._rank(batch, torch.from_numpy(cand).to(dev),
-                           torch.from_numpy(clen).to(dev)), n_counts)
+        mine = self._local(B)
+        return (self.gather_rows(self._rank(
+            batch, torch.from_numpy(cand[mine]).to(dev),
+            torch.from_numpy(clen[mine]).to(dev))), n_counts)
 
     @staticmethod
     def rank_results(raw, valid) -> List[List[float]]:

@@ -18,11 +18,24 @@ Numerics follow the JAX modules:
   ``log_softmax``.
 
 Dropout follows ``self.training`` (JAX's ``deterministic`` is eval mode).
+
+Tensor parallelism (:mod:`mtn_tpu_torch.parallel`): ``Shardings.
+shard_model`` cuts a layer's parameters to this rank's slab and sets its
+mode. A column-parallel :class:`ParamLinear` holds a slice of the output
+axis, a row-parallel one a slice of the input axis: its f32 partial
+products are summed over ``model`` and then cast, as the single-device
+product rounds its f32 sum once, and its bias is added once after the
+sum. An attention then runs ``att_h / model`` heads, the FFN kernel a
+``d_ff / model`` slice, a vocab-parallel :class:`Embed` looks up the ids
+in its rows, and :class:`Generator` gathers the logits before the
+log-softmax, so every rank sees the whole vocabulary. Dropout on the
+FFN's hidden units and on the attention probabilities keeps this rank's
+slice of the whole activation's mask (``collectives.sharded_dropout``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +43,11 @@ from torch import nn
 
 from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.ffn_kernel import fused_ffn
+from mtn_tpu_torch.ops.matmul import matmul_f32
+from mtn_tpu_torch.parallel.collectives import (Axis, copy_to_model,
+                                                gather_last,
+                                                reduce_from_model,
+                                                sharded_dropout)
 from mtn_tpu_torch.ops.positional import sinusoidal_table
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,17 +79,42 @@ class RefLayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def row_product(x: torch.Tensor, kernel: torch.Tensor, axis: Axis,
+                dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel ``x @ kernel``: f32 partial products summed over
+    ``axis``, then cast to ``dtype``. ``kernel`` is (K, E), or (S, K, E)
+    stacked against an ``x`` of (S, ..., K)."""
+    K, E = x.shape[-1], kernel.shape[-1]
+    lead = (kernel.shape[0], -1) if kernel.dim() == 3 else (-1,)
+    y = matmul_f32(x.reshape(*lead, K), kernel)
+    return reduce_from_model(y.reshape(*x.shape[:-1], E), axis).to(dtype)
+
+
 class Embed(nn.Module):
     """The flax ``nn.Embed`` parameter (``embedding``), gathered in the
-    compute dtype."""
+    compute dtype; vocab-parallel after :meth:`set_parallel`."""
 
     def __init__(self, vocab_size: int, d_model: int, dtype: torch.dtype):
         super().__init__()
         self.embedding = nn.Parameter(
             torch.zeros(vocab_size, d_model, dtype=dtype))
+        self.axis: Optional[Axis] = None
+
+    def set_parallel(self, axis: Axis) -> None:
+        """This rank holds rows ``[rank·V/n, (rank+1)·V/n)``."""
+        self.axis = axis
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(tokens, self.embedding)
+        if self.axis is None:
+            return nn.functional.embedding(tokens, self.embedding)
+        rows = self.embedding.shape[0]
+        local = tokens - self.axis.rank * rows
+        outside = (local < 0) | (local >= rows)
+        emb = nn.functional.embedding(local.clamp(0, rows - 1),
+                                      self.embedding)
+        # one rank holds each id: the sum adds exact zeros to it
+        return reduce_from_model(emb.masked_fill(outside[..., None], 0),
+                                 self.axis)
 
 
 class ScaledEmbed(nn.Module):
@@ -125,6 +168,13 @@ class ParamLinear(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(d_in, features, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
+        self.mode: Optional[str] = None     # None, "column" or "row"
+        self.axis: Optional[Axis] = None
+
+    def set_parallel(self, mode: str, axis: Axis) -> None:
+        """Column-parallel (the kernel's output axis is this rank's
+        slice) or row-parallel (its input axis) over ``axis``."""
+        self.mode, self.axis = mode, axis
 
     @property
     def is_int8(self) -> bool:
@@ -144,12 +194,24 @@ class ParamLinear(nn.Module):
         self.register_buffer("kernel_scale",
                              scale.to(device, torch.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def prepare(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the compute dtype; a column-parallel layer's input
+        sums its gradient over the ranks."""
         x = x.to(self.dtype)
+        return copy_to_model(x, self.axis) if self.mode == "column" else x
+
+    def product(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel``, summed over the ranks when row-parallel."""
+        if self.mode == "row":
+            return row_product(x, kernel, self.axis, self.dtype)
+        return torch.matmul(x, kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.prepare(x)
         if self.is_int8:
-            y = torch.matmul(x, self.kernel.to(self.dtype))
+            y = self.product(x, self.kernel.to(self.dtype))
             return y * self.kernel_scale.to(self.dtype) + self.bias
-        return torch.matmul(x, self.kernel) + self.bias
+        return self.product(x, self.kernel) + self.bias
 
 
 class MultiHeadAttention(nn.Module):
@@ -163,6 +225,7 @@ class MultiHeadAttention(nn.Module):
                              f"{n_heads} heads")
         self.n_heads = n_heads
         self.d_model = d_model
+        self.d_k = d_model // n_heads
         self.dtype = dtype
         self.attn_dropout = attn_dropout
         self.use_kernel = use_kernel
@@ -171,10 +234,14 @@ class MultiHeadAttention(nn.Module):
         self.w_v = ParamLinear(d_model, d_model, dtype)
         self.w_o = ParamLinear(d_model, d_model, dtype)
 
+    @property
+    def local_heads(self) -> int:
+        """Heads this rank runs (``att_h / model`` when sharded)."""
+        return self.w_q.kernel.shape[1] // self.d_k
+
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
-        d_k = self.d_model // self.n_heads
-        return x.reshape(B, L, self.n_heads, d_k).transpose(1, 2)
+        return x.reshape(B, L, -1, self.d_k).transpose(1, 2)
 
     def _merge(self, x: torch.Tensor) -> torch.Tensor:
         B, H, L, d_k = x.shape
@@ -182,7 +249,8 @@ class MultiHeadAttention(nn.Module):
 
     def _attend(self, q, k, v, mask, rate: float) -> torch.Tensor:
         out = multi_head_attention(q, k, v, mask, dropout_rate=rate,
-                                   use_kernel=self.use_kernel)
+                                   use_kernel=self.use_kernel,
+                                   heads=self.w_q.axis)
         return self.w_o(self._merge(out))
 
     def project_kv(self, kv_in: torch.Tensor):
@@ -195,12 +263,12 @@ class MultiHeadAttention(nn.Module):
         mods = (self.w_q, self.w_k, self.w_v)
         kernel = torch.cat([m.kernel for m in mods], dim=1).to(self.dtype)
         bias = torch.cat([m.bias for m in mods])
-        qkv = torch.matmul(x.to(self.dtype), kernel)
+        qkv = torch.matmul(self.w_q.prepare(x), kernel)
         if mods[0].is_int8:
             qkv = qkv * torch.cat([m.kernel_scale for m in mods]).to(
                 self.dtype)
         qkv = qkv + bias
-        q, k, v = torch.split(qkv, self.d_model, dim=-1)
+        q, k, v = torch.split(qkv, self.w_q.kernel.shape[1], dim=-1)
         return self._split(q), self._split(k), self._split(v)
 
     def attend_pre_q(self, q, k, v, mask) -> torch.Tensor:
@@ -221,7 +289,9 @@ class MultiHeadAttention(nn.Module):
 class FeedForward(nn.Module):
     """Linear -> ReLU -> dropout -> Linear; with ``use_kernel``, no
     active dropout and float weights, the fused FFN (kernel inside its
-    gate). int8 weights take the two int8 linears, as in JAX."""
+    gate). int8 weights take the two int8 linears, as in JAX. Under
+    tensor parallelism the kernel runs on this rank's d_ff slice with an
+    f32 output and b2 = 0; the ranks' sums are added and b2 after them."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float,
                  dtype: torch.dtype, use_kernel: bool = False):
@@ -230,16 +300,22 @@ class FeedForward(nn.Module):
         self.use_kernel = use_kernel
         self.w_1 = ParamLinear(d_model, d_ff, dtype)
         self.w_2 = ParamLinear(d_ff, d_model, dtype)
-        self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_kernel and (not self.training or self.dropout == 0.0) \
                 and not self.w_1.is_int8:
             dt = self.w_1.dtype
+            if self.w_2.mode == "row":
+                y = fused_ffn(self.w_1.prepare(x), self.w_1.kernel,
+                              self.w_1.bias, self.w_2.kernel,
+                              torch.zeros_like(self.w_2.bias), f32_out=True)
+                y = reduce_from_model(y, self.w_2.axis)
+                return (y + self.w_2.bias.float()).to(dt)
             return fused_ffn(x.to(dt), self.w_1.kernel, self.w_1.bias,
                              self.w_2.kernel, self.w_2.bias)
         h = torch.relu(self.w_1(x))
-        return self.w_2(self.drop(h))
+        return self.w_2(sharded_dropout(h, self.dropout, self.training,
+                                        self.w_1.axis))
 
 
 class Sublayer(nn.Module):
@@ -267,7 +343,10 @@ class Generator(nn.Module):
         self.proj = ParamLinear(d_model, vocab_size, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.log_softmax(self.proj(x).float(), dim=-1)
+        logits = self.proj(x)
+        if self.proj.mode == "column":
+            logits = gather_last(logits, self.proj.axis)
+        return torch.log_softmax(logits.float(), dim=-1)
 
 
 def named_list(parent: nn.Module, prefix: str,

@@ -41,9 +41,10 @@ from mtn_tpu_torch.models.layers import (FeedForward, Generator,
                                          MultiHeadAttention, ParamLinear,
                                          PosEncoding, RefLayerNorm,
                                          ScaledEmbed, Sublayer, named_list,
-                                         torch_dtype)
+                                         row_product, torch_dtype)
 from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.masks import attend_first_if_empty
+from mtn_tpu_torch.parallel.collectives import gather_last, sharded_dropout
 
 Tensor = torch.Tensor
 Position = Union[int, Tensor]
@@ -109,7 +110,10 @@ class VideoEncoder(nn.Module):
         self.pe = PosEncoding(d_model, dropout, max_len, dtype)
 
     def forward(self, ft: Tensor) -> Tensor:
-        return self.pe(torch.relu(self.proj(ft.to(self.dtype))))
+        h = torch.relu(self.proj(ft.to(self.dtype)))
+        if self.proj.mode == "column":   # the next layers need it whole
+            h = gather_last(h, self.proj.axis)
+        return self.pe(h)
 
 
 class NormEncoder(nn.Module):
@@ -218,7 +222,9 @@ class DecoderLayer(nn.Module):
         through ``multi_head_attention`` on (S·B, H, L, Dk) with its
         kernel gate. int8 kernels scale after the product with their
         stacked per-channel scales. In training, dropout draws over the
-        stacked shape: JAX's distribution, not its bits."""
+        stacked shape: JAX's distribution, not its bits. Under tensor
+        parallelism the stacked slabs keep their layers' modes: local
+        heads, and the row-parallel w_o and w_2 summed over ``model``."""
         cfg = self.cfg
         S, D, H = cfg.n_streams, cfg.d_model, cfg.att_h
         dt = torch_dtype(cfg.dtype)
@@ -232,9 +238,8 @@ class DecoderLayer(nn.Module):
         amask = ae_mask[None].expand((S,) + tuple(ae_mask.shape))
         per_stream = lambda t: t[:, None, None, :]
 
-        def drop(x):
-            return nn.functional.dropout(x, cfg.dropout,
-                                         training=self.training)
+        def drop(x, axis=None):
+            return sharded_dropout(x, cfg.dropout, self.training, axis)
 
         def norm(x, subs):
             a = torch.stack([s.norm.scale for s in subs])
@@ -249,28 +254,33 @@ class DecoderLayer(nn.Module):
         def lin(x, mods, name):
             subs = [getattr(m, name) for m in mods]
             W = torch.stack([s.kernel for s in subs]).to(dt)   # (S,D,E)
-            y = torch.matmul(x.to(dt), W[:, None])
+            x = subs[0].prepare(x)
+            y = (row_product(x, W, subs[0].axis, dt)
+                 if subs[0].mode == "row" else torch.matmul(x, W[:, None]))
             if subs[0].is_int8:
                 y = y * per_stream(torch.stack(
                     [s.kernel_scale for s in subs]).to(dt))
             return y + per_stream(torch.stack([s.bias for s in subs]))
 
         def mha(mods, xq, xkv, mask):
-            split = lambda t: t.reshape(S * B, -1, H, D // H).transpose(1, 2)
+            split = lambda t: t.reshape(S * B, t.shape[2], -1,
+                                        D // H).transpose(1, 2)
             out = multi_head_attention(
                 split(lin(xq, mods, "w_q")), split(lin(xkv, mods, "w_k")),
                 split(lin(xkv, mods, "w_v")),
                 mask.reshape(S * B, 1, 1, mask.shape[-1]),
                 dropout_rate=cfg.attn_dropout if self.training else 0.0,
-                use_kernel=cfg.use_pallas_attention)
-            return lin(out.transpose(1, 2).reshape(S, B, -1, D), mods, "w_o")
+                use_kernel=cfg.use_pallas_attention, heads=mods[0].w_q.axis)
+            return lin(out.transpose(1, 2).reshape(S, B, out.shape[2], -1),
+                       mods, "w_o")
 
         y = norm(ae, self.sl_ae_self)
         ae = ae + drop(mha(self.ae_self_attn, y, y, amask))
         ae = ae + drop(mha(self.ae_vid_attn, norm(ae, self.sl_ae_vid), vid,
                            vmask))
         h = torch.relu(lin(norm(ae, self.sl_ae_ff), self.ae_ff, "w_1"))
-        return ae + drop(lin(drop(h), self.ae_ff, "w_2"))
+        return ae + drop(lin(drop(h, self.ae_ff[0].w_1.axis), self.ae_ff,
+                             "w_2"))
 
     # -- full (training) forward -------------------------------------------
     def forward(self, x, enc: Encoded, masks: SourceMasks, tgt_mask, ae_fts):
@@ -513,7 +523,8 @@ class MTN(nn.Module):
     def init_self_kv(self, batch_size: int, maxlen: int, device=None):
         """Zeroed per-layer self-attention KV caches (one tensor each)."""
         cfg = self.cfg
-        shape = (batch_size, cfg.att_h, maxlen, cfg.d_model // cfg.att_h)
+        heads = self.decoder.layers[0].self_attn.local_heads
+        shape = (batch_size, heads, maxlen, cfg.d_model // cfg.att_h)
         dt = torch_dtype(cfg.dtype)
         device = device if device is not None else \
             self.generator.proj.kernel.device

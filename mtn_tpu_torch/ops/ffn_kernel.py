@@ -3,7 +3,9 @@ plain PyTorch version.
 
 Counterpart of ``mtn_tpu/ops/pallas_ffn.py`` (``fused_ffn``, gate
 ``supports``): ``h = relu(x·W1 + b1)`` in f32, rounded to ``W2.dtype``;
-``y = h·W2 + b2`` in f32, stored in ``x.dtype``. Weights keep the JAX
+``y = h·W2 + b2`` in f32, stored in ``x.dtype``, or in f32 with
+``f32_out`` (a tensor-parallel rank's partial sum over its d_ff slice,
+which the ranks add in f32 before rounding). Weights keep the JAX
 layout, W1 (D, F) and W2 (F, D).
 
 :func:`ffn` calls the op ``mtn_tpu_torch::ffn`` (``torch.library``),
@@ -42,7 +44,7 @@ SMEM_LIMIT = 232448   # H100: 227 KB of shared memory per block
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mtn_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.mtn_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.mtn_ffn.restype = ctypes.c_int
 
 
@@ -79,26 +81,29 @@ def supports(n_rows: int, d_model: int, d_ff: int, itemsize: int) -> bool:
 
 
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+              w2: torch.Tensor, b2: torch.Tensor,
+              f32_out: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch; x is (N, D). The products
     have f32 output (bf16 GEMMs on a GPU, as JAX's ``_xla_ffn``)."""
     h = torch.relu(matmul_f32(x, w1) + b1.float())
     y = matmul_f32(h.to(w2.dtype), w2) + b2.float()
-    return y.to(x.dtype)
+    return y if f32_out else y.to(x.dtype)
 
 
 def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D)."""
+        w2: torch.Tensor, b2: torch.Tensor,
+        f32_out: bool = False) -> torch.Tensor:
+    """x (N, D), w1 (D, F), b1 (F,), w2 (F, D), b2 (D,) -> (N, D), in
+    x's dtype or, with ``f32_out``, in f32."""
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (x, w1, b1, w2, b2))
     if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2) if grad else \
-            ffn_op(x, w1, b1, w2, b2)
+        return ffn_plain(x, w1, b1, w2, b2, f32_out) if grad else \
+            ffn_op(x, w1, b1, w2, b2, f32_out)
     check(x, w1, b1, w2, b2)
     if grad:
-        return FFNFunction.apply(x, w1, b1, w2, b2)
-    return ffn_op(x, w1, b1, w2, b2)
+        return FFNFunction.apply(x, w1, b1, w2, b2, f32_out)
+    return ffn_op(x, w1, b1, w2, b2, f32_out)
 
 
 class FFNFunction(torch.autograd.Function):
@@ -106,9 +111,10 @@ class FFNFunction(torch.autograd.Function):
     recomputed on the saved inputs."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, f32_out=False):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return ffn_op(x, w1, b1, w2, b2)
+        ctx.f32_out = f32_out
+        return ffn_op(x, w1, b1, w2, b2, f32_out)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -116,10 +122,10 @@ class FFNFunction(torch.autograd.Function):
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wrt = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = ffn_plain(*inputs)
+            out = ffn_plain(*inputs, f32_out=ctx.f32_out)
             grads = iter(torch.autograd.grad(out, wrt, grad_out))
         return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs)
+                     for t in inputs) + (None,)
 
 
 def check(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -154,7 +160,8 @@ def check(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+           w2: torch.Tensor, b2: torch.Tensor,
+           f32_out: bool = False) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors; raises on anything it
     cannot take."""
     check(x, w1, b1, w2, b2)
@@ -164,11 +171,11 @@ def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             raise ValueError(f"ffn: {name} must be 32-byte aligned")
     N, D = x.shape
     F = w1.shape[-1]
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=torch.float32 if f32_out else x.dtype)
     rc = KERNEL.lib().mtn_ffn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), N, D, F,
-        int(x.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), int(f32_out),
         torch.cuda.current_stream(x.device).cuda_stream)
     check_cuda(rc, "ffn kernel launch")
     KERNEL.launches += 1
@@ -178,30 +185,33 @@ def launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 @torch.library.custom_op("mtn_tpu_torch::ffn", mutates_args=(),
                          device_types="cuda")
 def ffn_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+           w2: torch.Tensor, b2: torch.Tensor,
+           f32_out: bool = False) -> torch.Tensor:
     """The op: one kernel launch on the card (:func:`launch`)."""
-    return launch(x, w1, b1, w2, b2)
+    return launch(x, w1, b1, w2, b2, f32_out)
 
 
 @ffn_op.register_kernel("cpu")
-def _ffn_cpu(x, w1, b1, w2, b2):
-    return ffn_plain(x, w1, b1, w2, b2)
+def _ffn_cpu(x, w1, b1, w2, b2, f32_out=False):
+    return ffn_plain(x, w1, b1, w2, b2, f32_out)
 
 
 @ffn_op.register_fake
-def _ffn_fake(x, w1, b1, w2, b2):
-    return torch.empty_like(x, memory_format=torch.contiguous_format)
+def _ffn_fake(x, w1, b1, w2, b2, f32_out=False):
+    return torch.empty_like(x, dtype=torch.float32 if f32_out else x.dtype,
+                            memory_format=torch.contiguous_format)
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+              w2: torch.Tensor, b2: torch.Tensor,
+              f32_out: bool = False) -> torch.Tensor:
     """x (..., D): the kernel where the gate takes the shape, else the
     plain version (``pallas_ffn.fused_ffn``'s dispatch)."""
     D = x.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, D)
     if supports(x2.shape[0], D, w1.shape[1], x.element_size()):
-        out = ffn(x2.contiguous(), w1, b1, w2, b2)
+        out = ffn(x2.contiguous(), w1, b1, w2, b2, f32_out)
     else:
-        out = ffn_plain(x2, w1, b1, w2, b2)
+        out = ffn_plain(x2, w1, b1, w2, b2, f32_out)
     return out.reshape(*lead, D)

@@ -151,12 +151,14 @@ def encode_requests(requests: Sequence[Request], model_cfg, data_cfg, vocab,
 
 
 def check_mesh(mesh: Optional[Mapping[str, int]]) -> None:
-    """Only one device is ported: a mesh of axis sizes (``{"data": n,
-    "model": m}``) with an axis larger than 1 raises."""
+    """A session serves from one device: a mesh of axis sizes
+    (``{"data": n, "model": m}``) with an axis larger than 1 raises (a
+    multi-rank server needs its ranks to step in lockstep behind one
+    front end)."""
     if mesh and any(n > 1 for n in mesh.values()):
         raise NotImplementedError(
-            "not ported to mtn_tpu_torch yet: mesh sizes > 1 "
-            "(ROADMAP: parallel)")
+            "not ported to mtn_tpu_torch yet: serving under a mesh larger "
+            "than one device (ROADMAP: parallel serving)")
 
 
 class Served(NamedTuple):

@@ -107,6 +107,17 @@ def device_batch(hb: HostBatch, device: Union[str, torch.device],
     )
 
 
+def to_device_fn(feature_dtype: str = "float32", shardings=None,
+                 device: Union[str, torch.device] = "cpu"):
+    """HostBatch -> DeviceBatch transfer closure shared by the CLIs:
+    :func:`device_batch` with the feature transfer dtype; under a mesh
+    with a data axis, this rank's rows only, cut on the host and uploaded
+    alone (``Shardings.put_host_batch``)."""
+    if shardings is None or shardings.data is None:
+        return lambda hb: device_batch(hb, device, feature_dtype)
+    return lambda hb: shardings.put_host_batch(hb, device, feature_dtype)
+
+
 def blank_like(db: DeviceBatch, pad: int = 1) -> DeviceBatch:
     """An all-padding microbatch shaped like ``db``: no real token, no
     frame, every row invalid. It adds zero loss and zero gradients, and

@@ -27,7 +27,7 @@ computed in f32 on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -69,10 +69,13 @@ class NoamAdam:
                          mu=[torch.zeros_like(p) for p in params],
                          nu=[torch.zeros_like(p) for p in params])
 
-    def clip(self, grads: List[torch.Tensor]) -> None:
-        """``optax.clip_by_global_norm`` in place."""
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+    def clip(self, grads: List[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> None:
+        """``optax.clip_by_global_norm`` in place; ``norm`` is the global
+        norm where the caller computes it (gradients held as slabs)."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         keep = norm < self.grad_clip
         one = torch.ones((), device=norm.device)
         torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -80,10 +83,12 @@ class NoamAdam:
                                                self.grad_clip))
 
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamState) -> None:
-        """One update of ``params`` (f32) from ``grads`` (f32, consumed)."""
+               state: AdamState,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """One update of ``params`` (f32) from ``grads`` (f32, consumed);
+        ``norm`` as for :meth:`clip`."""
         if self.grad_clip > 0:
-            self.clip(grads)
+            self.clip(grads, norm)
         t = state.count + 1
         bc1 = np.float32(1.0) - np.float32(B1) ** np.float32(t)
         bc2 = np.float32(1.0) - np.float32(B2) ** np.float32(t)

@@ -24,6 +24,21 @@ generators, inside a forked RNG state, from those numbers, so a run
 resumed at a step draws what an uninterrupted run draws there. (JAX's own
 bits cannot be reproduced.)
 
+Under a mesh (``shardings``, :mod:`mtn_tpu_torch.parallel`): the model
+holds this rank's slabs (``Shardings.shard_model``) and so do the masters
+and Adam's moments, which :meth:`Trainer.state_from` cuts from full
+tensors. Each data rank runs its rows of the batch; the loss is
+normalised by the token counts summed over ``data``, so the ranks' losses
+and f32 gradients, summed over ``data`` (in ~32 MB buckets), are the
+whole batch's. Clipping takes the global norm: the squares of sharded
+gradients summed over ``model``, replicated ones counted once. Dropout
+folds the data rank into its key, so data ranks draw different masks.
+The model ranks of a data rank are seeded alike: their replicated
+activations draw one mask, and a sharded activation (the FFN's hidden
+units, the attention probabilities) is dropped by this rank's slice of
+the whole activation's mask (``collectives.sharded_dropout``), so a
+``1 x model`` mesh draws one process's masks.
+
 :meth:`Trainer.run_epoch` keeps each step's loss on the device and reads
 it a few steps behind (a pinned copy and an event per step on a GPU), so
 the host never waits on the step it has just launched.
@@ -39,10 +54,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mtn_tpu_torch.config import ModelConfig, TrainConfig
 from mtn_tpu_torch.data.vocab import BLANK, SPECIALS
 from mtn_tpu_torch.models.mtn import MTN
+from mtn_tpu_torch.parallel.collectives import all_reduce
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
 from mtn_tpu_torch.train.loss import mtn_loss
 from mtn_tpu_torch.train.schedule import AdamState, NoamAdam
@@ -147,15 +164,21 @@ class Trainer:
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device, pad: int = SPECIALS[BLANK],
-                 nan_checks: bool = False):
+                 nan_checks: bool = False, shardings=None):
         self.device = torch.device(device)
         self.nan_checks = nan_checks
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.pad = pad
         self.model = MTN(model_cfg).to(self.device)
+        self.data = shardings.data if shardings is not None else None
+        self.layout = (shardings.shard_model(self.model)
+                       if shardings is not None else None)
         self.params = [p for _, p in self.model.named_parameters()]
         self.names = [n for n, _ in self.model.named_parameters()]
+        if self.layout is not None:
+            self._sharded = torch.tensor([self.layout.sharded(n)
+                                          for n in self.names])
         self.grads = [torch.zeros(p.shape, dtype=torch.float32,
                                   device=self.device) for p in self.params]
         self.optimizer = NoamAdam(model_cfg.d_model, train_cfg.warmup_steps,
@@ -173,7 +196,13 @@ class Trainer:
         device); f32 model parameters are their own masters.
         ``opt_state`` is Adam's state by parameter name (``{"count",
         "mu", "nu"}``, as ``weights.opt_state_from_optax`` gives it);
-        None starts Adam afresh."""
+        None starts Adam afresh. Under a mesh the tensors are full ones,
+        cut here to this rank's slabs."""
+        if self.layout is not None:
+            state_dict = self.layout.shard(state_dict)
+            if opt_state is not None:
+                opt_state = dict(opt_state, mu=self.layout.shard(
+                    opt_state["mu"]), nu=self.layout.shard(opt_state["nu"]))
         params = {}
         with torch.no_grad():
             for name, p in zip(self.names, self.params):
@@ -221,11 +250,63 @@ class Trainer:
 
     @contextlib.contextmanager
     def _rng(self, *key: int):
-        """Seed torch's generators from ``key`` inside a forked state."""
+        """Seed torch's generators from ``key`` (and the data rank)
+        inside a forked state."""
+        if self.data is not None:
+            key = key + (self.data.rank,)
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(step_seed(*key))
             yield
+
+    # -- data parallelism -----------------------------------------------------
+    def _norm(self, batches: List[DeviceBatch]) -> Tuple[Tensor, Tensor]:
+        """(answer tokens, AE target tokens) of ``batches``, summed over
+        the data ranks, at least 1 each."""
+        caption = self.model_cfg.auto_encoder_ft in ("caption", "summary")
+        counts = torch.stack([
+            sum((b.answer_out != self.pad).sum() for b in batches),
+            sum(((b.cap if caption else b.query) != self.pad).sum()
+                for b in batches)]).float()
+        if self.data is not None:
+            counts = all_reduce(counts, self.data)
+        counts = torch.clamp(counts, min=1.0)
+        return counts[0], counts[1]
+
+    def _data_sum(self, tensors: List[Tensor],
+                  bucket_elems: int = 1 << 23) -> None:
+        """Sum f32 ``tensors`` over the data ranks in place, a few
+        buckets of flattened tensors at a time."""
+        def flush(bucket):
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat, group=self.data.group)
+            parts = flat.split([t.numel() for t in bucket])
+            torch._foreach_copy_(bucket, [p.view_as(t) for p, t in
+                                          zip(parts, bucket)])
+        bucket, size = [], 0
+        for t in tensors:
+            bucket.append(t)
+            size += t.numel()
+            if size >= bucket_elems:
+                flush(bucket)
+                bucket, size = [], 0
+        if bucket:
+            flush(bucket)
+
+    def _global(self, loss: Tensor, ntok: Tensor) -> Tuple[Tensor, dict]:
+        """The batch's loss and metrics from this data rank's part of the
+        loss (normalised by the global counts)."""
+        loss = all_reduce(loss, self.data)
+        return loss, {"ntokens": ntok, "loss": loss,
+                      "loss_x_ntok": loss * ntok}
+
+    def _grad_norm(self, grads: List[Tensor]) -> Tensor:
+        """The global L2 norm of gradients some of which are slabs."""
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        sharded = self._sharded.to(sq.device)
+        total = sq[~sharded].sum() + all_reduce(sq[sharded].sum(),
+                                                self.layout.axis)
+        return torch.sqrt(total)
 
     def loss_and_grads(self, batch: DeviceBatch, key, norm=None,
                        accumulate: bool = False):
@@ -260,11 +341,16 @@ class Trainer:
 
     def _apply(self, state: TrainState, loss: Tensor,
                grads: List[Tensor]) -> None:
+        if self.data is not None:
+            self._data_sum(grads)
         if self.nan_checks:
             check_finite(state.step, loss, grads)
+        norm = None
+        if self.layout is not None and self.optimizer.grad_clip > 0:
+            norm = self._grad_norm(grads)
         with torch.no_grad():
             self.optimizer.update(list(state.params.values()), grads,
-                                  state.opt_state)
+                                  state.opt_state, norm=norm)
         state.step += 1
 
     # -- steps --------------------------------------------------------------
@@ -272,8 +358,11 @@ class Trainer:
                    base_seed: int) -> Tuple[TrainState, dict]:
         """One update; ``state`` is updated in place and returned."""
         self.load(state.params)
-        loss, metrics, grads = self.loss_and_grads(batch,
-                                                   (base_seed, state.step))
+        norm = self._norm([batch]) if self.data is not None else None
+        loss, metrics, grads = self.loss_and_grads(
+            batch, (base_seed, state.step), norm=norm)
+        if self.data is not None:
+            loss, metrics = self._global(loss, norm[0])
         self._apply(state, loss, grads)
         return state, metrics
 
@@ -283,27 +372,30 @@ class Trainer:
         """One update from a list of microbatches (``accumulated``);
         gradients are summed in f32."""
         self.load(state.params)
-        caption = self.model_cfg.auto_encoder_ft in ("caption", "summary")
-        count = lambda ts: torch.clamp(
-            sum((t != self.pad).sum() for t in ts).float(), min=1.0)
-        ntok = count([b.answer_out for b in micro])
-        ae_ntok = count([b.cap if caption else b.query for b in micro])
+        ntok, ae_ntok = self._norm(micro)
         total = 0.0
         for i, b in enumerate(micro):
             loss, _, grads = self.loss_and_grads(
                 b, (base_seed, state.step, i), norm=(ntok, ae_ntok),
                 accumulate=i > 0)
             total = total + loss
-        self._apply(state, total, grads)
-        return state, {"ntokens": ntok, "loss": total,
+        if self.data is not None:
+            total, metrics = self._global(total, ntok)
+        else:
+            metrics = {"ntokens": ntok, "loss": total,
                        "loss_x_ntok": total * ntok}
+        self._apply(state, total, grads)
+        return state, metrics
 
     def eval_step(self, batch: DeviceBatch) -> dict:
         """The loss of the model as last loaded (``load``)."""
         self.model.eval()
         with torch.no_grad():
-            _, metrics = self.loss_fn(batch)
-        return metrics
+            if self.data is None:
+                return self.loss_fn(batch)[1]
+            norm = self._norm([batch])
+            loss, _ = self.loss_fn(batch, norm)
+            return self._global(loss, norm[0])[1]
 
     # -- epoch loop ---------------------------------------------------------
     def run_epoch(self, state: TrainState, batches,

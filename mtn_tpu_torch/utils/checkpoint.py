@@ -23,6 +23,12 @@ wait for the next checkpoint operation (any save, restore or meta read)
 or :meth:`CheckpointManager.flush`, which the train CLI calls at exit.
 The files are those of a blocking save; only what a crash leaves
 differs (the last epoch's files on disk, unreferenced by ``meta.json``).
+
+Under a mesh (``layout``, :mod:`mtn_tpu_torch.parallel`) the files are
+the single-device ones: a save gathers the slabs into full tensors on
+every rank (a collective) and rank 0 alone writes; a restore loads the
+full tensors and cuts this rank's slabs. A checkpoint trained under any
+mesh loads on one device, and the reverse.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from mtn_tpu_torch.parallel.multihost import is_primary
 from mtn_tpu_torch.train.trainer import (TrainState, load_opt_state,
                                          opt_state_by_name)
 from mtn_tpu_torch.weights import save_conf
@@ -44,8 +51,11 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, model_prefix: str, async_save: bool = False):
+    def __init__(self, model_prefix: str, async_save: bool = False,
+                 layout=None):
         self.prefix = model_prefix
+        self.layout = layout
+        self.primary = is_primary()
         self.dir = os.path.abspath(model_prefix + "_torch")
         os.makedirs(self.dir, exist_ok=True)
         self._meta_path = os.path.join(self.dir, "meta.json")
@@ -58,8 +68,10 @@ class CheckpointManager:
                commit: Callable[[], None]) -> None:
         """Write ``(object, path)`` pairs, then ``commit``; under
         ``async_save`` the writes run on a thread and the commit waits for
-        the next checkpoint operation."""
+        the next checkpoint operation. Only the primary rank writes."""
         self.flush()
+        if not self.primary:
+            return
         if not self.async_save:
             for obj, path in files:
                 self._save_atomic(obj, path)
@@ -90,7 +102,8 @@ class CheckpointManager:
 
     # -- sidecars -----------------------------------------------------------
     def save_conf(self, vocab: dict, **config_sections) -> None:
-        save_conf(self.prefix, vocab, **config_sections)
+        if self.primary:
+            save_conf(self.prefix, vocab, **config_sections)
 
     # -- meta ---------------------------------------------------------------
     def meta(self) -> dict:
@@ -120,16 +133,20 @@ class CheckpointManager:
     def _opt_path(self, epoch) -> str:
         return os.path.join(self.dir, f"epoch_{epoch}.opt.pt")
 
-    @staticmethod
-    def _opt_payload(state: TrainState) -> Dict[str, Any]:
+    def _full(self, tensors: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """Full tensors on the CPU (slabs gathered under a mesh)."""
+        if self.layout is not None:
+            tensors = self.layout.gather(tensors)
+        return {n: _cpu(t) for n, t in tensors.items()}
+
+    def _opt_payload(self, state: TrainState) -> Dict[str, Any]:
         opt = opt_state_by_name(state)
         return {"step": state.step, "count": opt["count"],
-                "mu": {n: _cpu(t) for n, t in opt["mu"].items()},
-                "nu": {n: _cpu(t) for n, t in opt["nu"].items()}}
+                "mu": self._full(opt["mu"]), "nu": self._full(opt["nu"])}
 
-    @staticmethod
-    def _params_payload(state: TrainState) -> Dict[str, torch.Tensor]:
-        return {n: _cpu(t) for n, t in state.params.items()}
+    def _params_payload(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        return self._full(state.params)
 
     @staticmethod
     def _save_atomic(obj, path: str) -> None:
@@ -137,13 +154,17 @@ class CheckpointManager:
         torch.save(obj, tmp)
         os.replace(tmp, path)
 
-    @staticmethod
-    def _load_into(state: TrainState, params: Dict[str, torch.Tensor],
+    def _load_into(self, state: TrainState, params: Dict[str, torch.Tensor],
                    opt: Dict[str, Any]) -> TrainState:
         """Copy a saved state into ``state``'s tensors, in place (a master
-        that is a model parameter stays one)."""
+        that is a model parameter stays one); under a mesh, this rank's
+        slabs of it."""
         if set(params) != set(state.params):
             raise KeyError("checkpoint parameters do not match the model")
+        if self.layout is not None:
+            params = self.layout.shard(params)
+            opt = dict(opt, mu=self.layout.shard(opt["mu"]),
+                       nu=self.layout.shard(opt["nu"]))
         with torch.no_grad():
             for n, t in state.params.items():
                 t.copy_(params[n])

@@ -30,9 +30,18 @@ class CSVLogger:
 
 class TraceLogger:
     """The log files of one model prefix; ``resume=True`` appends to
-    existing logs instead of starting them anew."""
+    existing logs instead of starting them anew. ``primary=False`` (a
+    rank other than 0 of a multi-process run) writes nothing: the ranks
+    share the files' directory."""
 
-    def __init__(self, model_prefix: str, resume: bool = False):
+    def __init__(self, model_prefix: str, resume: bool = False,
+                 primary: bool = True):
+        self.primary = primary
+        if not primary:
+            self.train_csv = CSVLogger(os.devnull,
+                                       "epoch,step,loss,tokens_per_sec",
+                                       resume=True)
+            return
         self.train_csv = CSVLogger(model_prefix + "_train.csv",
                                    "epoch,step,loss,tokens_per_sec", resume)
         self.trace_csv = CSVLogger(model_prefix + "_trace.csv",
@@ -43,17 +52,23 @@ class TraceLogger:
 
     def train_step(self, epoch: int, step: int, loss: float,
                    tokens_per_sec: float):
+        if not self.primary:
+            return
         # the reference writes the loss in scientific notation
         self.train_csv.append(epoch, step, "%e" % loss, tokens_per_sec)
         self.metric({"kind": "train_step", "epoch": epoch, "step": step,
                      "loss": loss, "tokens_per_sec": tokens_per_sec})
 
     def epoch(self, epoch: int, split: str, avg_loss: float):
+        if not self.primary:
+            return
         self.trace_csv.append(epoch, split, "%e" % avg_loss)
         self.metric({"kind": "epoch", "epoch": epoch, "split": split,
                      "avg_loss": avg_loss})
 
     def metric(self, record: dict):
+        if not self.primary:
+            return
         record = dict(record, time=time.time())
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(record) + "\n")

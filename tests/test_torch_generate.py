@@ -3,6 +3,7 @@ the same params give the same result JSON (margin-aware), and the port's
 CLI runs end to end on a checkpoint in its own format."""
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -128,16 +129,23 @@ def test_cli_end_to_end_on_port_checkpoint(setup, tmp_path):
     assert _answers(plain) == answers
 
 
-@pytest.mark.parametrize("flag", [["--mesh-model", "2"],
-                                  ["--mesh-data", "2"],
-                                  ["--multihost", "auto"]])
-def test_cli_refuses_unported_flags(flag):
-    """The multi-device flags are refused (--nan-checks and --profile-dir
-    are accepted and ignored, as by JAX's generate CLI:
-    ``tests/test_torch_tools.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported") as e:
+MESH_ERRORS = [
+    (["--mesh-model", "2"], AssertionError,
+     "1 devices not divisible by model=2"),
+    (["--mesh-data", "2", "--mesh-model", "2"], AssertionError,
+     "mesh 2x2 > 1 devices"),
+    (["--multihost", "localhost:1,two,0"], ValueError,
+     "--multihost expects 'auto' or 'host:port,nprocs,procid'")]
+
+
+@pytest.mark.parametrize("flag,error,match", MESH_ERRORS)
+def test_cli_refuses_unported_flags(flag, error, match):
+    """The parallel flags are ported (``tests/test_torch_distributed.py``
+    runs them on gloo worlds); a mesh larger than the world raises as
+    JAX's ``make_mesh`` asserts, and a bad ``--multihost`` spec with JAX's
+    message, before anything is loaded."""
+    with pytest.raises(error, match=re.escape(match)):
         main(["--device", "cpu", *flag])
-    assert "tools" not in str(e.value)
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8-fp-head"])

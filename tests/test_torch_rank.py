@@ -171,9 +171,9 @@ def test_cli_rank_refuses_multihost_and_bad_candidates(tiny_corpus,
                                                        tmp_path):
     from mtn_tpu_torch.cli.rank import _align_candidates
     from mtn_tpu_torch.data.dataset import load
-    with pytest.raises(NotImplementedError, match="--multihost"):
+    with pytest.raises(ValueError, match="--multihost expects 'auto' or"):
         main(["--device", "cpu", "--candidates", "x", "--multihost",
-              "auto"])
+              "h:1,2"])
     c = tiny_corpus
     vocab = get_vocabulary(c.train_set, 0, "caption,summary")
     data = load(c.fea_types, c.fea_path, c.test_set, vocab,

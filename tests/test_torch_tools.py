@@ -1,7 +1,7 @@
 """The port's training tools against ``mtn_tpu``'s: checkpoint averaging
 (``utils/average.py``), the async checkpoint save, ``--nan-checks``,
-``--profile-dir``, ``--batched-ae 1`` on the train CLI, and the flags
-that ``check_unported`` still refuses (CPU)."""
+``--profile-dir``, ``--batched-ae 1`` on the train CLI, and the parallel
+set-up of the CLIs on a world of one (CPU)."""
 
 import argparse
 import json
@@ -17,7 +17,7 @@ from mtn_tpu.utils.average import _resolve_epochs as jax_resolve
 from mtn_tpu_torch.cli import generate as generate_cli
 from mtn_tpu_torch.cli import rank as rank_cli
 from mtn_tpu_torch.cli import train as train_cli
-from mtn_tpu_torch.cli.common import check_unported
+from mtn_tpu_torch.cli.common import make_mesh_from_args
 from mtn_tpu_torch.config import TrainConfig
 from mtn_tpu_torch.train.trainer import Trainer
 from mtn_tpu_torch.utils import average, profiling
@@ -339,23 +339,48 @@ def _args(**kw):
     return argparse.Namespace(**base)
 
 
-@pytest.mark.parametrize("kw,refused", [
-    (dict(multihost="auto"), ["--multihost"]),
-    (dict(mesh_data=2), ["mesh sizes"]),
-    (dict(mesh_model=4, multihost="h:1,2,0"), ["--multihost",
-                                               "mesh sizes"]),
+@pytest.mark.parametrize("kw,error", [
+    (dict(multihost="h:1,two,0"), ValueError),
+    (dict(mesh_data=2), None),
+    (dict(mesh_model=4), AssertionError),
     (dict(profile_dir="p", nan_checks=1, batched_ae=1, feature_cache="c",
-          async_save=1), []),
+          async_save=1), None),
 ])
-def test_check_unported_refuses_only_the_parallel_flags(kw, refused):
-    if not refused:
-        check_unported(_args(**kw))
+def test_check_unported_refuses_only_the_parallel_flags(kw, error):
+    """Nothing of the parallel flags is refused any more. On a world of
+    one the mesh is JAX's: ``--mesh-data 2`` is the single-device case,
+    ``--mesh-model 4`` fails JAX's assert, and a bad ``--multihost`` spec
+    raises JAX's message; the tool flags leave the mesh alone."""
+    import jax
+    from mtn_tpu.parallel import make_mesh as jax_make_mesh
+    from mtn_tpu.parallel.multihost import initialize_from_flag as jax_flag
+    from mtn_tpu_torch.parallel.multihost import initialize_from_flag
+    args = _args(**kw)
+    if error is None:
+        assert make_mesh_from_args(args, 4) == (None, None)
         return
-    with pytest.raises(NotImplementedError) as e:
-        check_unported(_args(**kw))
-    msg = str(e.value)
-    assert all(r in msg for r in refused) and "ROADMAP: parallel" in msg
-    assert "tools" not in msg and "batched" not in msg
+    with pytest.raises(error) as want:
+        if error is ValueError:
+            jax_flag(args.multihost)
+        else:   # JAX's make_mesh over one device
+            jax_make_mesh(data=-1, model=4, devices=jax.devices()[:1])
+    with pytest.raises(error) as got:
+        if error is ValueError:
+            initialize_from_flag(args.multihost, device="cpu")
+        else:
+            make_mesh_from_args(args)
+    assert str(got.value) == str(want.value)
+
+
+def test_mesh_from_args_raises_where_the_batch_does_not_divide(
+        monkeypatch):
+    """The port's mesh takes every rank, so instead of JAX's fit of the
+    data axis to the batch on fewer devices, 3 ranks and a turn batch of
+    32 raise, naming both numbers."""
+    from mtn_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "world_size", lambda: 3)
+    with pytest.raises(ValueError, match=r"batch size 32 .* 3 data"):
+        make_mesh_from_args(_args(), 32)
 
 
 PORTED = [("train", ["--batched-ae", "1"], "batched_ae", 1),
@@ -375,13 +400,13 @@ PORTED = [("train", ["--batched-ae", "1"], "batched_ae", 1),
                          ids=[f"{c}{' '.join(f)}" for c, f, _, _ in PORTED])
 def test_cli_accepts_the_ported_flags(cli, flag, dest, value):
     """Each CLI's parser takes the flags this port runs (or, in the
-    decode CLIs, ignores as JAX's do), and ``check_unported`` lets them
-    through."""
+    decode CLIs, ignores as JAX's do), and the parallel set-up lets them
+    through: one device, no mesh."""
     mod = {"train": train_cli, "generate": generate_cli,
            "rank": rank_cli}[cli]
     required = ["--candidates", "c"] if cli == "rank" else []
     args = mod.build_parser().parse_args(["--device", "cpu", *required,
                                           *flag])
     assert getattr(args, dest) == value
-    check_unported(args)
+    assert make_mesh_from_args(args) == (None, None)
 

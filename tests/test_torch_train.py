@@ -5,6 +5,7 @@ CLI end to end (f32, tiny configs, numpy-seeded params)."""
 
 import dataclasses
 import json
+import re
 
 import jax
 import numpy as np
@@ -420,15 +421,19 @@ def test_cli_train_has_the_jax_flags():
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--multihost", "auto"],
-                                  ["--mesh-data", "2"],
-                                  ["--mesh-model", "2"]])
-def test_cli_train_refuses_unported_flags(flag):
-    """The multi-device flags are refused (the ported ones are accepted:
-    ``tests/test_torch_tools.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallel") as e:
+@pytest.mark.parametrize("flag,error,match", [
+    (["--multihost", "h:1,2"], ValueError,
+     "--multihost expects 'auto' or 'host:port,nprocs,procid'"),
+    (["--mesh-data", "2", "--mesh-model", "2"], AssertionError,
+     "mesh 2x2 > 1 devices"),
+    (["--mesh-model", "2"], AssertionError,
+     "1 devices not divisible by model=2")])
+def test_cli_train_refuses_unported_flags(flag, error, match):
+    """The parallel flags are ported (``tests/test_torch_distributed.py``);
+    a mesh larger than the world raises as JAX's ``make_mesh`` asserts, a
+    bad ``--multihost`` spec with JAX's message."""
+    with pytest.raises(error, match=re.escape(match)):
         train_cli.main(["--device", "cpu", *flag])
-    assert "tools" not in str(e.value) and "batched" not in str(e.value)
 
 
 def test_cli_train_needs_a_gpu_unless_told_cpu():

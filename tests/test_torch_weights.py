@@ -124,7 +124,9 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
                  "evalmetrics.meteor", "evalmetrics.retrieval",
                  "data.native_loader", "data.feature_cache",
                  "utils.profiling", "utils.average", "ops.matmul",
-                 "utils.aot", "decode.steps"):
+                 "utils.aot", "decode.steps", "parallel.mesh",
+                 "parallel.multihost", "parallel.sharding",
+                 "parallel.collectives"):
         assert f"mtn_tpu_torch.{name}" in loaded, name
 
 
