@@ -9,7 +9,9 @@
 3. holds each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the shapes of the beam-decode path, of the sample, rank,
    serving and AOT paths (the FFN at 5, 32, 64, 80 and 200 rows,
-   attention at 1, 2 and 16 turns), of the batched_ae precompute (attention at B64 = 2 streams
+   attention at 1, 2 and 16 turns), of a served mesh's rank (attention
+   at 8 turns and at 16 turns × 4 heads, the FFN at 40 and 8 rows and at
+   d_ff 1024 at 80 and 16), of the batched_ae precompute (attention at B64 = 2 streams
    × 32 turns, Lk 32, and Lk 64 with the shorter stream's padded keys
    masked) and outside its gate (the FFN also at 16, 161 and 256 rows;
    bf16 attention also at
@@ -51,8 +53,11 @@
    f32 sums in one process's order) the decode bitwise one process's;
    an f32 decode within 1e-3 of one process's, and
    every kernel launch on the rank's shard: attention at 4 heads, the FFN
-   at d_ff 1024); then drives the other decode modes and stage 4 on the
-   same corpus and weights:
+   at d_ff 1024; under 2x1 also a step at dropout and attention dropout
+   0.1, each rank's rows of the dropout masks bitwise one process's and
+   the loss within 1e-3, and an update from two 4-row microbatches
+   within 1e-3 of one process's 8-row step); then drives the other decode
+   modes and stage 4 on the same corpus and weights:
    ``[sample]`` (``cli.generate --decode-style sample``,
    temperature 1, top-k 50, top-p 0.9, through both kernels, counted;
    the same seed again bitwise equal; temperature 0 bitwise equal to
@@ -77,7 +82,14 @@
    100 candidates, a reassembled /v1/stream equal to the greedy decode,
    /admin/reload, /metrics; kernel launches counted over the HTTP
    traffic: both kernels for bf16, attention and never the FFN for
-   int8) and ``[aot]`` (``mtn_tpu_torch.utils.aot``: a bf16 beam
+   int8), ``[serve-parallel]`` (two ranks on the card over gloo as 2x1
+   and 1x2, rank 0 serving HTTP and rank 1 following it in lockstep: the
+   32 requests as two 16-request batches, again from 8 threads, one
+   /v1/rank, one greedy /v1/stream, one /admin/reload; under 2x1 the
+   n-bests and the stream bitwise one process's, under 1x2 an f32
+   session's n-bests margin-aware within 1e-3; both ranks launch both
+   kernels (1x2: at 4 heads and d_ff 1024), run the same commands and
+   exit 0) and ``[aot]`` (``mtn_tpu_torch.utils.aot``: a bf16 beam
    artifact with row buckets 1 and 16, rank 100 × 24 and the stream
    programs, exported and loaded, seconds and bytes per program; the
    32 requests decoded through it in 16-row chunks bitwise equal to a
@@ -275,6 +287,10 @@ def attention_cases(torch, ak, dtype_name: str, gen):
         ((1, 8, 32, 64, 64), "keys"),    # --aot decodes each request alone)
         ((32, 4, 32, 32, 64), "keys"),   # a rank's 4 heads under
         ((32, 4, 32, 64, 64), "keys"),   # --mesh-model 2 ([parallel])
+        ((8, 8, 32, 32, 64), "keys"),    # a served mesh's rank: 8 of 16
+        ((8, 8, 32, 64, 64), "keys"),    # turns (2x1), 4 heads (1x2)
+        ((16, 4, 32, 32, 64), "keys"),
+        ((16, 4, 32, 64, 64), "keys"),
         ((64, 8, 32, 32, 64), "keys"),   # batched_ae: 2 streams x 32 turns
         ((64, 8, 32, 64, 64), "padded"),  # ... AE->video, keys 32-63 of
         #                                   the VGGish half padded
@@ -347,11 +363,13 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     200 (rank: 2 turns × 100 options) and 80 (serving: 16 turns × beam
     5), and at rank's precompute (the AE FFN over 2 turns × 32 query
     positions, 64 rows); at 5 (an artifact's one-turn beam step, as
-    ``serve_http --aot`` decodes each request); at 16, 161 (a
+    ``serve_http --aot`` decodes each request); at 40 and 8 (a 2x1 served
+    rank's beam and stream steps, 8 turns); at 16, 161 (a
     ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
     rows, outside the gate. Then a tensor-parallel rank's d_ff slice
-    (F 1024 under ``--mesh-model 2``) at the decode step's 160 rows and a
-    train step's 256, in bf16 also with the f32 output that rank sums
+    (F 1024 under ``--mesh-model 2``) at the decode step's 160 rows, a
+    train step's 256 and the served beam and stream steps' 80 and 16, in
+    bf16 also with the f32 output that rank sums
     (``f32_out``). Each case runs twice on the same inputs and must agree
     bitwise. Weights rotate over copies larger than L2 together, so every
     timed launch reads them from device memory, as a decode step does
@@ -361,8 +379,8 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     D = 512
     elt = torch.empty((), dtype=dt).element_size()
     outs = (False, True) if dtype_name == "bfloat16" else (False,)
-    cases = [(2048, (160, 32, 200, 80, 64, 16, 5, 161, 256, 300, 1024),
-              (False,)), (1024, (160, 256), outs)]
+    cases = [(2048, (160, 32, 200, 80, 64, 16, 5, 40, 8, 161, 256, 300,
+                     1024), (False,)), (1024, (160, 256, 80, 16), outs)]
     rows = []
     for F, Ns, f32_outs in cases:
         copies = max(2, -(-2 * L2_BYTES // (2 * D * F * elt)))
@@ -1120,10 +1138,63 @@ def http(base: str, path: str, body=None, timeout: float = 300):
                           else text)
 
 
+def serve_session(corpus: dict, quant: str = "", dtype: str = "bfloat16",
+                  mesh=None, device: str = "cuda"):
+    """The served beam session of the checkpoint (beam 5, maxlen 30, both
+    kernels, ``turn_batch`` 16); ``mesh``: served by the mesh's ranks."""
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.serve import ServingSession
+    return ServingSession.from_checkpoint(
+        corpus["prefix"] + "_best", DecodeConfig(
+            maxlen=30, beam=5, nbest=5, penalty=1.0,
+            turn_batch=SERVE_TURN_BATCH),
+        mesh=mesh, model_overrides={"dtype": dtype,
+                                    "use_pallas_attention": True,
+                                    "use_pallas_ffn": True},
+        weights_quant=quant, device=device)
+
+
+def rank_candidates(corpus: dict):
+    """N_OPTIONS candidate answers of 3-11 random vocabulary words."""
+    import numpy as np
+    from mtn_tpu_torch.weights import load_conf
+    vocab, _ = load_conf(corpus["prefix"])
+    words = [w for w in vocab if w.startswith("w")]
+    rng = np.random.default_rng(5)
+    return [" ".join(rng.choice(words, int(rng.integers(3, 12))))
+            for _ in range(N_OPTIONS)]
+
+
+def concurrent_respond(base: str, bodies) -> dict:
+    """The bodies as /v1/respond requests from SERVE_THREADS threads:
+    how many were answered, the wall time and requests/sec."""
+    import threading
+    results = [None] * len(bodies)
+    per = len(bodies) // SERVE_THREADS
+
+    def caller(i):
+        for j in range(i * per, (i + 1) * per):
+            results[j] = http(base, "/v1/respond", bodies[j])
+    threads = [threading.Thread(target=caller, args=(i,))
+               for i in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    return dict(requests=len(bodies), threads=SERVE_THREADS,
+                answered=sum(r is not None and r[0] == 200
+                             and isinstance(r[1]["answer"], str)
+                             for r in results),
+                wall_s=wall, requests_per_sec=len(bodies) / wall)
+
+
 def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     """An in-process ``serve_http.start_server`` on 127.0.0.1:0 over a
-    bf16 beam session (beam 5, maxlen 30, both kernels, ``turn_batch``
-    16, warmed up; ``quant``: its weights): /v1/respond against the
+    bf16 beam session (:func:`serve_session`: beam 5, maxlen 30, both
+    kernels, ``turn_batch`` 16), warmed up (``quant``: its weights):
+    /v1/respond against the
     session's own respond_batch of the same request, bitwise; 32 requests
     from 8 threads (requests/sec, /stats latency, batch launches);
     /v1/rank with 100 candidates; a /v1/stream reassembled against the
@@ -1131,20 +1202,9 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     same answer after it); /metrics. Kernel launches are counted over the
     HTTP traffic alone: the counts are set to 0 before each request (or
     the 32 concurrent ones) and read after it."""
-    import threading
-
-    import numpy as np
-    from mtn_tpu_torch.config import DecodeConfig
-    from mtn_tpu_torch.serve import ServingSession, encode_requests
+    from mtn_tpu_torch.serve import encode_requests
     from mtn_tpu_torch.serve_http import parse_request, start_server
-    from mtn_tpu_torch.weights import load_conf
-    session = ServingSession.from_checkpoint(
-        corpus["prefix"] + "_best", DecodeConfig(
-            maxlen=30, beam=5, nbest=5, penalty=1.0,
-            turn_batch=SERVE_TURN_BATCH),
-        model_overrides={"dtype": "bfloat16", "use_pallas_attention": True,
-                         "use_pallas_ffn": True},
-        weights_quant=quant, device="cuda")
+    session = serve_session(corpus, quant=quant)
     warmup_s = session.warmup(stream=True)
     bodies = serve_bodies(corpus, SERVE_REQUESTS)
     launches, calls = {"attention": 0, "ffn": 0}, {}
@@ -1168,41 +1228,14 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
             "answer": want[0], "score": want[1], "nbest": [
                 {"answer": a, "score": sc} for a, sc in want.nbest]}
 
-        results = [None] * SERVE_REQUESTS
-        per = SERVE_REQUESTS // SERVE_THREADS
-
-        def caller(i):
-            for j in range(i * per, (i + 1) * per):
-                results[j] = http(base, "/v1/respond", bodies[j])
-
-        def concurrent():
-            threads = [threading.Thread(target=caller, args=(i,))
-                       for i in range(SERVE_THREADS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(600)
         before = srv.async_server.launches
-        t0 = time.perf_counter()
-        counted(concurrent)
-        wall = time.perf_counter() - t0
+        load = counted(lambda: concurrent_respond(base, bodies))
         stats = http(base, "/stats")[1]
-        out.update(
-            requests=SERVE_REQUESTS, threads=SERVE_THREADS,
-            answered=sum(r is not None and r[0] == 200
-                         and isinstance(r[1]["answer"], str)
-                         for r in results),
-            batch_launches=srv.async_server.launches - before,
-            wall_s=wall, requests_per_sec=SERVE_REQUESTS / wall,
-            stats_latency=stats["latency"])
+        out.update(load, batch_launches=srv.async_server.launches - before,
+                   stats_latency=stats["latency"])
 
-        vocab, _ = load_conf(corpus["prefix"])
-        words = [w for w in vocab if w.startswith("w")]
-        rng = np.random.default_rng(5)
-        cands = [" ".join(rng.choice(words, int(rng.integers(3, 12))))
-                 for _ in range(N_OPTIONS)]
         code, ranked = counted(lambda: http(base, "/v1/rank", dict(
-            bodies[1], candidates=cands)))
+            bodies[1], candidates=rank_candidates(corpus))))
         logps = [c["logp"] for c in ranked["candidates"]]
         ranks = sorted(c["rank"] for c in ranked["candidates"])
         out["rank"] = dict(
@@ -1211,19 +1244,15 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
             and all(math.isfinite(x) for x in logps)
             and 1 <= ranks[0] and ranks[-1] <= N_OPTIONS)
 
-        text = counted(lambda: http(base, "/v1/stream", bodies[2])[1])
-        events = [json.loads(line[len("data: "):])
-                  for line in text.splitlines() if line.startswith("data: ")]
-        tokens = [e["token"] for e in events if "token" in e]
+        tokens = counted(lambda: stream_words(base, bodies[2]))
         db = session.to_device(encode_requests(
             [parse_request(bodies[2])], session.model_cfg, session.data_cfg,
             session.vocab, session._lb, session._fb,
             pad_rows_to=SERVE_TURN_BATCH))
         greedy = [session.vlist[t]
                   for t in session.decoder.greedy_batch(db)[0]]
-        out["stream"] = dict(tokens=len(tokens), equals_greedy=bool(
-            events and tokens == greedy and events[-1].get("done") is True
-            and events[-1]["answer"] == " ".join(tokens)))
+        out["stream"] = dict(tokens=len(tokens or []),
+                             equals_greedy=tokens == greedy)
 
         code, reloaded = http(base, "/admin/reload", {})
         code2, again = counted(lambda: http(base, "/v1/respond", one))
@@ -1243,6 +1272,267 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     del session, srv
     torch.cuda.empty_cache()
     return out
+
+
+# -- [serve-parallel]: serving under a mesh of lockstep ranks ---------------
+SERVE_PAR_WARMUP_COMMANDS = 2   # warmup(stream=True): a decode and a stream
+
+
+def serve_batches(base: str, bodies) -> list:
+    """The bodies as /v1/respond_batch calls of SERVE_TURN_BATCH requests
+    (each one AsyncServer launch): [[answers], [scores]] per request."""
+    out = []
+    for lo in range(0, len(bodies), SERVE_TURN_BATCH):
+        code, body = http(base, "/v1/respond_batch", {
+            "requests": bodies[lo:lo + SERVE_TURN_BATCH], "nbest": 5})
+        if code != 200:
+            raise AssertionError(f"respond_batch answered {code}: {body}")
+        out += [[[h["answer"] for h in r["nbest"]],
+                 [h["score"] for h in r["nbest"]]] for r in body["results"]]
+    return out
+
+
+def stream_words(base: str, body) -> list:
+    """A /v1/stream's words; None unless it ended with its answer."""
+    text = http(base, "/v1/stream", body)[1]
+    events = [json.loads(line[len("data: "):])
+              for line in text.splitlines() if line.startswith("data: ")]
+    words = [e["token"] for e in events if "token" in e]
+    done = events and events[-1].get("done") is True and \
+        events[-1]["answer"] == " ".join(words)
+    return words if done else None
+
+
+def device_split(torch, fn) -> dict:
+    """``fn()`` under torch.profiler: its wall ms and this process's
+    device busy ms (kernel time summed) and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    groups, launches, _ = device_groups(torch, prof)
+    busy = sum(groups.values())
+    return dict(wall_ms=wall, device_busy_ms=busy if launches else
+                "not measured", device_launches=launches,
+                idle_share=1 - busy / wall if launches else "not measured")
+
+
+def serve_one_process(torch, corpus: dict, bodies, dtype: str) -> dict:
+    """What one process's session answers to the served mesh's traffic,
+    batched as the server batches it: the two 16-request batches (their
+    host/device split under the profiler, bf16), and in bf16 the rank
+    request (through AsyncServer, 16 rows) and the greedy stream."""
+    from mtn_tpu_torch.serve import AsyncServer
+    from mtn_tpu_torch.serve_http import parse_request
+    session = serve_session(corpus, dtype=dtype)
+    session.warmup()
+    reqs = [parse_request(b) for b in bodies]
+    out = {}
+    out["split"] = device_split(torch, lambda: out.update(
+        nbest=session_nbests(session, corpus)))
+    if dtype == "bfloat16":
+        srv = AsyncServer(session, max_wait_ms=1.0)
+        try:
+            out["rank"] = [sc for _, sc, _ in srv.submit_rank(
+                reqs[1], rank_candidates(corpus)).result(300)]
+        finally:
+            srv.stop()
+        out["stream"] = list(session.stream(reqs[2]))
+    del session
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_leader(torch, ak, fk, session, corpus: dict) -> dict:
+    """Rank 0: ``serve_http.start_server`` over the mesh's session and the
+    traffic through it: the 32 requests as two 16-request batches (their
+    host/device split), the 32 again from 8 threads (requests/sec), one
+    /v1/rank with 100 candidates, one greedy /v1/stream, one
+    /admin/reload of the served checkpoint; launches counted over the
+    traffic alone."""
+    from mtn_tpu_torch.serve_http import start_server
+    bodies = serve_bodies(corpus, SERVE_REQUESTS)
+    srv = start_server(session, port=0, max_wait_ms=20.0)
+    base = "http://%s:%d" % srv.server_address
+    out = {}
+
+    def traffic():
+        out["split"] = device_split(torch, lambda: out.update(
+            nbest=serve_batches(base, bodies)))
+        out["load"] = concurrent_respond(base, bodies)
+        code, ranked = http(base, "/v1/rank", dict(
+            bodies[1], candidates=rank_candidates(corpus)))
+        out["rank"] = [c["logp"] for c in ranked["candidates"]] \
+            if code == 200 else None
+        out["stream"] = stream_words(base, bodies[2])
+        out["reload"] = http(base, "/admin/reload", {})
+    try:
+        _, out["count"] = counted_run(torch, ak, fk, traffic)
+        out["stats"] = http(base, "/stats")[1]
+        out["healthz"] = http(base, "/healthz")[1]
+    finally:
+        srv.close()
+    return out
+
+
+def serve_follower(torch, ak, fk, session) -> dict:
+    """A follower's loop, its launches counted from the first command
+    after rank 0's warmup, and the host/device split of its part of the
+    two 16-request batches (the next two commands)."""
+    from torch.profiler import ProfilerActivity, profile
+    orig, n, out = session._run, [0], {}
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+
+    def run(op, args, sink=None):
+        if n[0] == SERVE_PAR_WARMUP_COMMANDS:
+            torch.cuda.synchronize()
+            ak.KERNEL.launches = fk.KERNEL.launches = 0
+            out["t0"] = time.perf_counter()
+            prof.start()
+        result = orig(op, args, sink)
+        n[0] += 1
+        if n[0] == SERVE_PAR_WARMUP_COMMANDS + 2:
+            torch.cuda.synchronize()
+            prof.stop()
+            wall = (time.perf_counter() - out.pop("t0")) * 1e3
+            groups, launches, _ = device_groups(torch, prof)
+            busy = sum(groups.values())
+            out["split"] = dict(
+                wall_ms=wall, device_busy_ms=busy if launches else
+                "not measured", device_launches=launches,
+                idle_share=1 - busy / wall if launches else "not measured")
+        return result
+    session._run = run
+    seen = record_launches(ak, fk, lambda: out.update(
+        commands=session.follow()))
+    torch.cuda.synchronize()
+    out["count"] = dict(launches={"attention": ak.KERNEL.launches,
+                                  "ffn": fk.KERNEL.launches},
+                        shapes=launch_shapes(seen))
+    return out
+
+
+def serve_rank(rank: int, world: int, port: int, mesh: str, corpus: dict,
+               out_dir: str, device: str = "cuda") -> None:
+    """One rank of a served ``mesh`` on cuda:0 over gloo: the bf16
+    session (rank 0 warms it up and leads the traffic, the other rank
+    follows until ``stop``); under a model axis then an f32 session whose
+    rank 0 answers the two 16-request batches. Writes what it saw."""
+    import torch
+    from mtn_tpu_torch.ops import attention_kernel as ak
+    from mtn_tpu_torch.ops import ffn_kernel as fk
+    from mtn_tpu_torch.parallel import make_mesh, multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multihost.initialize(f"localhost:{port}", world, rank,
+                               device=device, backend="gloo")
+    data, model = (int(v) for v in mesh.split("x"))
+    grid = make_mesh(data=data, model=model, device_type=dev.type)
+    res = dict(rank=rank, device=str(dev))
+    for dtype in ("bfloat16", "float32") if model > 1 else ("bfloat16",):
+        session = serve_session(corpus, dtype=dtype, mesh=grid,
+                                device=str(dev))
+        t0 = time.time()
+        if rank == 0:
+            session.warmup(stream=True)
+            if dtype == "bfloat16":
+                part = serve_leader(torch, ak, fk, session, corpus)
+            else:
+                part = dict(nbest=session_nbests(session, corpus))
+            session.close()
+        else:
+            part = serve_follower(torch, ak, fk, session)
+        part["seconds"] = time.time() - t0
+        res[dtype] = part
+        del session
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"serve_{mesh}_r{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def session_nbests(session, corpus: dict) -> list:
+    """The 32 requests as two respond_batch calls of the session:
+    [[answers], [scores]] per request."""
+    from mtn_tpu_torch.serve_http import parse_request
+    reqs = [parse_request(b) for b in serve_bodies(corpus, SERVE_REQUESTS)]
+    return [[[a for a, _ in r.nbest], [sc for _, sc in r.nbest]]
+            for lo in range(0, len(reqs), SERVE_TURN_BATCH)
+            for r in session.respond_batch(reqs[lo:lo + SERVE_TURN_BATCH])]
+
+
+def serve_parallel_phase(torch, corpus: dict, root: str,
+                         serve_rps: float) -> dict:
+    """Serving under a mesh: two ranks on cuda:0 over gloo as 2x1 and
+    1x2, each rank a process (spawned as ``[parallel]``'s), rank 0
+    serving HTTP and rank 1 following it, against one process's session
+    on the same traffic. 2x1: the n-bests and the stream bitwise one
+    process's. 1x2 (bf16 beams part at near ties, as ``[parallel]``'s
+    traces show): the bf16 n-bests reported margin-aware, an f32
+    session's held to one process's margin-aware with scores within
+    PAR_F32_TOL. Both ranks exit 0 and launch both kernels at their shard
+    shapes."""
+    bodies = serve_bodies(corpus, SERVE_REQUESTS)
+    single = {d: serve_one_process(torch, corpus, bodies, d)
+              for d in ("bfloat16", "float32")}
+    res = {"single": dict(split=single["bfloat16"]["split"],
+                          requests_per_sec_serve=serve_rps)}
+    ok = True
+    for mesh in ("2x1", "1x2"):
+        t0 = time.time()
+        ranks = spawn_ranks(mesh, corpus, root, f32=False,
+                            target=serve_rank, prefix="serve")
+        lead, follow = ranks[0]["bfloat16"], ranks[1]["bfloat16"]
+        want = single["bfloat16"]
+        row = dict(
+            seconds=time.time() - t0,
+            nbest=compare_nbest(lead["nbest"], want["nbest"],
+                                PAR_MARGIN["bfloat16"]),
+            stream_equal=lead["stream"] is not None
+            and lead["stream"] == want["stream"],
+            rank_max_abs_diff=max(abs(a - b) for a, b in zip(
+                lead["rank"], want["rank"])) if lead["rank"] else None,
+            reload=lead["reload"], answered=lead["load"]["answered"],
+            requests_per_sec=lead["load"]["requests_per_sec"],
+            split=[lead["split"], follow["split"]],
+            commands=[lead["stats"]["commands"], follow["commands"]],
+            healthz=lead["healthz"],
+            launches=[lead["count"]["launches"],
+                      follow["count"]["launches"]],
+            shapes=[lead["count"]["shapes"], follow["count"]["shapes"]])
+        row["exitcodes"] = [r["exitcode"] for r in ranks]
+        good = row["answered"] == SERVE_REQUESTS and \
+            row["reload"] == [200, {"ok": True, "epoch": 1}] and \
+            row["commands"][0] == row["commands"][1] and \
+            row["rank_max_abs_diff"] is not None and \
+            math.isfinite(row["rank_max_abs_diff"]) and \
+            row["exitcodes"] == [0, 0] and \
+            all(min(n.values()) > 0 for n in row["launches"])
+        if mesh == "2x1":
+            good &= row["nbest"]["bitwise"] and row["stream_equal"]
+        else:
+            f32 = compare_nbest(ranks[0]["float32"]["nbest"],
+                                single["float32"]["nbest"],
+                                PAR_MARGIN["float32"])
+            row["nbest_f32"] = f32
+            good &= f32["ok"] and f32["max_score_diff"] <= PAR_F32_TOL
+            # every launch on the rank's shard: 4 of 8 heads, d_ff 1024
+            row["shard_shapes_only"] = all(
+                (" H4 " in k) if k.startswith("attention") else
+                (" F1024" in k and "f32 out" in k)
+                for shapes in row["shapes"] for k in shapes)
+            good &= row["shard_shapes_only"]
+        row["ok"] = bool(good)
+        res[mesh] = row
+        ok &= row["ok"]
+    res["ok"] = bool(ok)
+    return res
 
 
 # -- the AOT artifact ---------------------------------------------------------
@@ -2339,6 +2629,59 @@ def trace_compare(torch, a, b, cfg) -> dict:
                 explained=all(r["explained"] for r in rows))
 
 
+def counted_run(torch, ak, fk, fn):
+    """``fn()`` with both kernels' counts set to 0 just before it: its
+    result, and its seconds, launches by kernel and by shape."""
+    box = []
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    t0 = time.time()
+    seen = record_launches(ak, fk, lambda: box.append(fn()))
+    torch.cuda.synchronize()
+    return box[0], dict(
+        seconds=time.time() - t0,
+        launches={"attention": ak.KERNEL.launches,
+                  "ffn": fk.KERNEL.launches},
+        shapes=launch_shapes(seen))
+
+
+def host_rows(hb, lo: int, n: int):
+    """Rows ``[lo, lo + n)`` of a host batch."""
+    import dataclasses
+    cut = lambda a: None if a is None else a[lo:lo + n]
+    return dataclasses.replace(
+        hb, query=cut(hb.query), his=cut(hb.his), cap=cut(hb.cap),
+        answer_in=cut(hb.answer_in), answer_out=cut(hb.answer_out),
+        fts=[cut(f) for f in hb.fts], fts_len=[cut(l) for l in hb.fts_len],
+        valid=cut(hb.valid), qa_ids=cut(hb.qa_ids))
+
+
+def mask_draws(torch, shardings, dev, rows: int = 8) -> dict:
+    """``sharded_dropout``'s mask over a batch-8 FFN hidden activation
+    (32 tokens, d_ff 2048, bf16) on the card's generator: this data
+    rank's draw against its rows of the whole batch's, bitwise; in one
+    process, whether ``F.dropout`` (CUDA's fused kernel) draws the same
+    bits as the law the port uses."""
+    from mtn_tpu_torch.parallel.collectives import sharded_dropout
+    data = shardings.data if shardings is not None else None
+    n = rows // (data.size if data is not None else 1)
+    lo = (data.rank if data is not None else 0) * n
+
+    def draw(r, fn):
+        torch.manual_seed(7)
+        return fn(torch.ones(r, 32, 2048, device=dev, dtype=torch.bfloat16))
+
+    def law(axis):
+        return lambda x: sharded_dropout(x, 0.1, True, data=axis)
+    whole = draw(rows, law(None))
+    out = dict(rows_bitwise=bool(torch.equal(draw(n, law(data)),
+                                             whole[lo:lo + n])),
+               kept_share=whole.ne(0).float().mean().item())
+    if data is None:
+        out["f_dropout_same_bits"] = bool(torch.equal(whole, draw(
+            rows, lambda x: torch.nn.functional.dropout(x, 0.1, True))))
+    return out
+
+
 def parallel_work(torch, ak, fk, corpus: dict, shardings, dev,
                   f32: bool, trace: bool = False) -> dict:
     """At the flagship width, both kernels on, the seeded weights:
@@ -2348,7 +2691,10 @@ def parallel_work(torch, ak, fk, corpus: dict, shardings, dev,
     f32. Each part's launches by kernel and by shape, counted from 0
     just before it. With ``trace`` the bf16 decode once more, traced
     step by step (:func:`traced_beam`), and under a model axis also with
-    each group of PAR_REPLICATED replicated (the other layers sharded)."""
+    each group of PAR_REPLICATED replicated (the other layers sharded).
+    Without a model axis also: one step at dropout and attention dropout
+    0.1, one update from the batch's two 4-row halves
+    (``train_step_accum``), and :func:`mask_draws`."""
     import copy
     from mtn_tpu_torch.config import DecodeConfig, TrainConfig
     from mtn_tpu_torch.decode.beam import BeamDecoder
@@ -2360,18 +2706,24 @@ def parallel_work(torch, ak, fk, corpus: dict, shardings, dev,
     dhb, _, _, cfg, sd = flagship_batch(corpus, 32)
     cfg.use_pallas_attention = cfg.use_pallas_ffn = True
     cfg.dropout = cfg.attn_dropout = 0.0
+    to_device = to_device_fn("bfloat16", shardings, dev)
 
-    def counted(fn):
-        box = []
-        ak.KERNEL.launches = fk.KERNEL.launches = 0
-        t0 = time.time()
-        seen = record_launches(ak, fk, lambda: box.append(fn()))
-        torch.cuda.synchronize()
-        return box[0], dict(
-            seconds=time.time() - t0,
-            launches={"attention": ak.KERNEL.launches,
-                      "ffn": fk.KERNEL.launches},
-            shapes=launch_shapes(seen))
+    def trainer(dropout=0.0):
+        c = copy.deepcopy(cfg)
+        c.dropout = c.attn_dropout = dropout
+        return Trainer(c, TrainConfig(warmup_steps=WARMUP), dev,
+                       shardings=shardings)
+
+    def dropout_step():
+        tr = trainer(0.1)
+        return tr.train_step(tr.state_from(sd), to_device(thb), 1)[1][
+            "loss"].item()
+
+    def accum_step():
+        tr = trainer()
+        micro = [to_device(host_rows(thb, lo, 4)) for lo in (0, 4)]
+        return tr.train_step_accum(tr.state_from(sd), micro, 1)[1][
+            "loss"].item()
 
     def train():
         tr = Trainer(copy.deepcopy(cfg), TrainConfig(warmup_steps=WARMUP),
@@ -2398,11 +2750,17 @@ def parallel_work(torch, ak, fk, corpus: dict, shardings, dev,
         return [[r.tokens, r.scores] for r in dec.beam_batch(db)]
 
     out = {}
-    out["losses"], out["train"] = counted(train)
-    out["nbest"], out["decode"] = counted(lambda: decode("bfloat16"))
+    out["losses"], out["train"] = counted_run(torch, ak, fk, train)
+    out["nbest"], out["decode"] = counted_run(torch, ak, fk,
+                                              lambda: decode("bfloat16"))
+    if shardings is None or shardings.model is None:
+        out["dropout_loss"] = dropout_step()
+        out["accum_loss"], out["accum"] = counted_run(torch, ak, fk,
+                                                      accum_step)
+        out["masks"] = mask_draws(torch, shardings, dev)
     if f32:
-        out["nbest_f32"], out["decode_f32"] = counted(
-            lambda: decode("float32"))
+        out["nbest_f32"], out["decode_f32"] = counted_run(
+            torch, ak, fk, lambda: decode("float32"))
     if trace:
         out["nbest_traced"], out["trace"] = traced_beam(
             *decoder("bfloat16", shardings))
@@ -2450,27 +2808,30 @@ def parallel_rank(rank: int, world: int, port: int, mesh: str,
 
 
 def spawn_ranks(mesh: str, corpus: dict, out_dir: str, f32: bool,
-                device: str = "cuda"):
-    """The ranks of ``mesh`` as processes started with ``spawn``; fails
-    if one raises or all have not ended within PAR_TIMEOUT_S."""
+                device: str = "cuda", target=None, prefix: str = "parallel"):
+    """The ranks of ``mesh`` as processes started with ``spawn``
+    (``target``: :func:`parallel_rank`, or :func:`serve_rank`, which
+    takes no ``f32``), each writing ``<prefix>_<mesh>_r<rank>.json``;
+    fails if one raises (a non-zero exit) or all have not ended within
+    PAR_TIMEOUT_S."""
     import torch.multiprocessing as mp
     d, m = (int(v) for v in mesh.split("x"))
     world = d * m
-    ctx = mp.start_processes(parallel_rank, nprocs=world, join=False,
-                             start_method="spawn", args=(
-                                 world, free_port(), mesh, corpus, out_dir,
-                                 f32, device))
+    args = (world, free_port(), mesh, corpus, out_dir) + (
+        (f32, device) if target is None else (device,))
+    ctx = mp.start_processes(target or parallel_rank, nprocs=world,
+                             join=False, start_method="spawn", args=args)
     t0 = time.time()
     while not ctx.join(timeout=5):
         if time.time() - t0 > PAR_TIMEOUT_S:
             for p in ctx.processes:
                 p.terminate()
-            raise AssertionError(f"[parallel] {mesh}: the ranks did not "
+            raise AssertionError(f"[{prefix}] {mesh}: the ranks did not "
                                  f"end within {PAR_TIMEOUT_S} s")
     out = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"parallel_{mesh}_r{r}.json")) as f:
-            out.append(json.load(f))
+    for r, p in enumerate(ctx.processes):
+        with open(os.path.join(out_dir, f"{prefix}_{mesh}_r{r}.json")) as f:
+            out.append(dict(json.load(f), exitcode=p.exitcode))
     return out
 
 
@@ -2534,8 +2895,11 @@ def parallel_phase(torch, ak, fk, corpus: dict, root: str,
     t0 = time.time()
     single = parallel_work(torch, ak, fk, corpus, None, torch.device("cuda"),
                            f32=True, trace=True)
-    res["single"] = dict(losses=single["losses"], train=single["train"],
-                         decode=single["decode"], seconds=time.time() - t0)
+    res["single"] = dict(
+        losses=single["losses"], train=single["train"],
+        decode=single["decode"], dropout_loss=single["dropout_loss"],
+        accum_loss=single["accum_loss"], masks=single["masks"],
+        seconds=time.time() - t0)
     ok = res["nccl_world_of_one"]["nccl"] and \
         res["nccl_world_of_one"]["bitwise_equal_to_main"]
     for mesh in ("2x1", "1x2"):
@@ -2564,6 +2928,30 @@ def parallel_phase(torch, ak, fk, corpus: dict, root: str,
                 good &= min(r[part]["launches"].values()) > 0
         if mesh == "2x1":
             good &= row["nbest"]["ok"]
+            # every rank draws the whole batch's dropout masks and keeps
+            # its rows (JAX's one key): each rank's rows of the masks bit
+            # for bit, and so one process's step (the loss's sum over the
+            # ranks may take another order: within PAR_LOSS_TOL, its bits
+            # reported); an update from two microbatches: the one big
+            # batch's
+            row.update(
+                dropout_losses=[r["dropout_loss"] for r in ranks],
+                dropout_bitwise=all(r["dropout_loss"] ==
+                                    single["dropout_loss"] for r in ranks),
+                dropout_rel_diff=abs(r0["dropout_loss"]
+                                     - single["dropout_loss"])
+                / abs(single["dropout_loss"]),
+                masks=[r["masks"] for r in ranks],
+                accum_losses=[r["accum_loss"] for r in ranks],
+                accum_rel_diff=abs(r0["accum_loss"] - single["losses"][0])
+                / abs(single["losses"][0]),
+                accum=[r["accum"] for r in ranks])
+            good &= row["dropout_rel_diff"] <= PAR_LOSS_TOL and \
+                all(r["dropout_loss"] == r0["dropout_loss"]
+                    for r in ranks) and \
+                all(m["rows_bitwise"] for m in row["masks"]) and \
+                row["accum_rel_diff"] <= PAR_LOSS_TOL and \
+                all(r["accum_loss"] == r0["accum_loss"] for r in ranks)
         if mesh == "1x2":
             # the n-best margin-aware is reported, not held: a beam can
             # part at a near tie inside the search that its final margin
@@ -2797,6 +3185,19 @@ def main() -> int:
         phase_s["serve"] = time.time() - t_phase
         t_phase = time.time()
 
+        # the served mesh: two lockstep ranks on the card, 2x1 and 1x2
+        sp = serve_parallel_phase(torch, corpus, root,
+                                  served[""]["requests_per_sec"])
+        for key in ("single", "2x1", "1x2"):
+            print(f"[serve-parallel] {key} {json.dumps(sp[key])}")
+        print("[serve-parallel] two ranks on one card over gloo stage every "
+              "collective through the host: no time here is a figure of "
+              "multi-GPU serving")
+        if not sp["ok"]:
+            return fail("serve-parallel: a check failed")
+        phase_s["serve-parallel"] = time.time() - t_phase
+        t_phase = time.time()
+
         # the AOT artifact: export, load, decode and serve through it
         aot = aot_phase(torch, ak, fk, corpus, root)
         print(f"[aot] {json.dumps(aot)}")
@@ -2886,6 +3287,9 @@ def main() -> int:
                     sample_launches=sample["launches"][name],
                     rank_launches=ranked["launches"][name],
                     serve_launches=serve_launches[name],
+                    serve_mesh_launches={
+                        m: [n[name] for n in sp[m]["launches"]]
+                        for m in ("2x1", "1x2")},
                     aot_launches=aot["http"]["launches"][name],
                     int8_launches=sum(int8[q]["launches"][name]
                                       for q in INT8_MODES),

@@ -128,7 +128,6 @@ def main(argv=None):
                                           setup_logging)
     setup_logging(args.verbose)
     print_args(args)
-    from mtn_tpu_torch.parallel.mesh import world_size
     device, shardings = init_parallel(args, args.batch_size)
     import torch
     from mtn_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
@@ -220,9 +219,6 @@ def main(argv=None):
         raise SystemExit("--accum-steps > 1 requires --uniform-shapes 1 "
                          "(as in mtn_tpu, whose accumulation groups stack "
                          "equal-shape batches)")
-    if args.accum_steps > 1 and world_size() > 1:
-        raise SystemExit("--accum-steps is not supported with --multihost "
-                         "(as in mtn_tpu)")
     # run_epoch counts updates under accumulation: the batch-unit cadences
     # are divided by accum so they keep firing at about the same batches
     report_every = max(1, args.report_interval // args.accum_steps)

@@ -38,7 +38,9 @@ closed cannot change, so the rows equal the single-device decode's.
 Sampling draws the whole batch's noise and takes this rank's rows of it,
 so a sample does not depend on the mesh. Under ``model`` every rank
 runs the same rows on the same gathered log-probs, so their loops take
-the same decisions.
+the same decisions. A stream gathers each step's tokens over ``data``,
+and every rank takes its stop test from the gathered rows: a rank that
+stopped on its own rows would leave the others waiting in the gather.
 """
 
 from __future__ import annotations
@@ -228,13 +230,12 @@ class BeamDecoder:
 
         A row's yields, cut at its first <eos>, equal its greedy_batch /
         sample_batch output (same step, same next-token rule). Each step
-        costs one device-to-host copy: tokens appear as they are decoded."""
+        costs one device-to-host copy: tokens appear as they are decoded.
+        Under a data axis the rows are the whole batch's, gathered at
+        every step, and every rank yields them."""
         if style not in ("greedy", "sample"):
             raise ValueError(f"stream_tokens: style {style!r} "
                              "(beam n-bests cannot stream)")
-        if self.data is not None:
-            raise RuntimeError("stream_tokens is single-rank serving "
-                               "(per-step host reads)")
         dev = batch.query.device
         B = batch.query.shape[0]
         with torch.inference_mode():
@@ -242,14 +243,14 @@ class BeamDecoder:
             pos = self._positions(self.cfg.maxlen, dev)
         step = self._stepper(state)
         uniforms = self._uniforms(style, fold, B, dev)
-        valid = np.asarray(batch.valid.cpu())
+        valid = np.asarray(self.gather_rows(batch.valid).cpu())
         cur = torch.full((B,), self.sos, dtype=torch.int64, device=dev)
         done = ~valid
         for l in range(self.cfg.maxlen):
             with torch.inference_mode():
                 cur = token_step(step, pos[l], cur, self_kv, uniforms(l),
                                  self.cfg)
-            host = cur.cpu().numpy()
+                host = self.gather_rows(cur).cpu().numpy()
             yield host[valid]
             done |= host == self.eos
             if done.all():

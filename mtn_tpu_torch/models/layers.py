@@ -28,9 +28,13 @@ product rounds its f32 sum once, and its bias is added once after the
 sum. An attention then runs ``att_h / model`` heads, the FFN kernel a
 ``d_ff / model`` slice, a vocab-parallel :class:`Embed` looks up the ids
 in its rows, and :class:`Generator` gathers the logits before the
-log-softmax, so every rank sees the whole vocabulary. Dropout on the
-FFN's hidden units and on the attention probabilities keeps this rank's
-slice of the whole activation's mask (``collectives.sharded_dropout``).
+log-softmax, so every rank sees the whole vocabulary.
+
+Dropout draws through ``collectives.sharded_dropout``: a layer's
+``data_axis`` (set by ``Shardings.shard_model`` under a data axis) says
+that its activations hold this rank's rows of the batch, and the FFN's
+hidden units and the attention probabilities are sharded over ``model``,
+so every rank keeps its part of the whole activation's mask.
 """
 
 from __future__ import annotations
@@ -138,11 +142,13 @@ class PosEncoding(nn.Module):
         super().__init__()
         self.register_buffer("pe", sinusoidal_table(max_len, d_model, dtype),
                              persistent=False)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
+        self.data_axis: Optional[Axis] = None
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         L = x.shape[-2]
-        return self.drop(x + self.pe[offset:offset + L])
+        return sharded_dropout(x + self.pe[offset:offset + L], self.dropout,
+                               self.training, data=self.data_axis)
 
     def at(self, x: torch.Tensor, pos) -> torch.Tensor:
         """Add the PE row of one position (single-step decode); ``pos`` an
@@ -229,6 +235,7 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.attn_dropout = attn_dropout
         self.use_kernel = use_kernel
+        self.data_axis: Optional[Axis] = None
         self.w_q = ParamLinear(d_model, d_model, dtype)
         self.w_k = ParamLinear(d_model, d_model, dtype)
         self.w_v = ParamLinear(d_model, d_model, dtype)
@@ -250,7 +257,7 @@ class MultiHeadAttention(nn.Module):
     def _attend(self, q, k, v, mask, rate: float) -> torch.Tensor:
         out = multi_head_attention(q, k, v, mask, dropout_rate=rate,
                                    use_kernel=self.use_kernel,
-                                   heads=self.w_q.axis)
+                                   heads=self.w_q.axis, data=self.data_axis)
         return self.w_o(self._merge(out))
 
     def project_kv(self, kv_in: torch.Tensor):
@@ -289,17 +296,27 @@ class MultiHeadAttention(nn.Module):
 class FeedForward(nn.Module):
     """Linear -> ReLU -> dropout -> Linear; with ``use_kernel``, no
     active dropout and float weights, the fused FFN (kernel inside its
-    gate). int8 weights take the two int8 linears, as in JAX. Under
-    tensor parallelism the kernel runs on this rank's d_ff slice with an
-    f32 output and b2 = 0; the ranks' sums are added and b2 after them."""
+    gate, which takes the whole batch's rows, :meth:`gate_rows`). int8
+    weights take the two int8 linears, as in JAX. Under tensor
+    parallelism the kernel runs on this rank's d_ff slice with an f32
+    output and b2 = 0; the ranks' sums are added and b2 after them."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float,
                  dtype: torch.dtype, use_kernel: bool = False):
         super().__init__()
         self.dropout = dropout
         self.use_kernel = use_kernel
+        self.data_axis: Optional[Axis] = None
         self.w_1 = ParamLinear(d_model, d_ff, dtype)
         self.w_2 = ParamLinear(d_ff, d_model, dtype)
+
+    def gate_rows(self, x: torch.Tensor) -> Optional[int]:
+        """The rows the kernel's gate takes under a data axis: the whole
+        batch's, as JAX's gate sees the global shape (a rank's own rows
+        can pass the row term where the batch's do not)."""
+        if self.data_axis is None:
+            return None
+        return x.numel() // x.shape[-1] * self.data_axis.size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_kernel and (not self.training or self.dropout == 0.0) \
@@ -308,14 +325,16 @@ class FeedForward(nn.Module):
             if self.w_2.mode == "row":
                 y = fused_ffn(self.w_1.prepare(x), self.w_1.kernel,
                               self.w_1.bias, self.w_2.kernel,
-                              torch.zeros_like(self.w_2.bias), f32_out=True)
+                              torch.zeros_like(self.w_2.bias), True,
+                              self.gate_rows(x))
                 y = reduce_from_model(y, self.w_2.axis)
                 return (y + self.w_2.bias.float()).to(dt)
             return fused_ffn(x.to(dt), self.w_1.kernel, self.w_1.bias,
-                             self.w_2.kernel, self.w_2.bias)
+                             self.w_2.kernel, self.w_2.bias, False,
+                             self.gate_rows(x))
         h = torch.relu(self.w_1(x))
         return self.w_2(sharded_dropout(h, self.dropout, self.training,
-                                        self.w_1.axis))
+                                        self.w_1.axis, data=self.data_axis))
 
 
 class Sublayer(nn.Module):
@@ -325,11 +344,13 @@ class Sublayer(nn.Module):
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = RefLayerNorm(d_model, param_dtype=param_dtype)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
+        self.data_axis: Optional[Axis] = None
 
     def forward(self, x: torch.Tensor,
                 f: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        return x + self.drop(f(self.norm(x)))
+        return x + sharded_dropout(f(self.norm(x)), self.dropout,
+                                   self.training, data=self.data_axis)
 
     def normed(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)

@@ -148,6 +148,7 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        self.data_axis = None   # the stacked AE chain's rows (dim 1)
         dt = torch_dtype(cfg.dtype)
         pt = torch_dtype(cfg.param_dtype)
         D, s = cfg.d_model, cfg.n_streams
@@ -222,7 +223,8 @@ class DecoderLayer(nn.Module):
         through ``multi_head_attention`` on (S·B, H, L, Dk) with its
         kernel gate. int8 kernels scale after the product with their
         stacked per-channel scales. In training, dropout draws over the
-        stacked shape: JAX's distribution, not its bits. Under tensor
+        stacked shape: JAX's distribution, not its bits; under a data
+        axis each stream's rows are this rank's (dimension 1). Under tensor
         parallelism the stacked slabs keep their layers' modes: local
         heads, and the row-parallel w_o and w_2 summed over ``model``."""
         cfg = self.cfg
@@ -239,7 +241,8 @@ class DecoderLayer(nn.Module):
         per_stream = lambda t: t[:, None, None, :]
 
         def drop(x, axis=None):
-            return sharded_dropout(x, cfg.dropout, self.training, axis)
+            return sharded_dropout(x, cfg.dropout, self.training, axis,
+                                   data=self.data_axis, row_dim=1)
 
         def norm(x, subs):
             a = torch.stack([s.norm.scale for s in subs])
@@ -270,7 +273,8 @@ class DecoderLayer(nn.Module):
                 split(lin(xkv, mods, "w_v")),
                 mask.reshape(S * B, 1, 1, mask.shape[-1]),
                 dropout_rate=cfg.attn_dropout if self.training else 0.0,
-                use_kernel=cfg.use_pallas_attention, heads=mods[0].w_q.axis)
+                use_kernel=cfg.use_pallas_attention, heads=mods[0].w_q.axis,
+                data=self.data_axis, stack=S)
             return lin(out.transpose(1, 2).reshape(S, B, out.shape[2], -1),
                        mods, "w_o")
 

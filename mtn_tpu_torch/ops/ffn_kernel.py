@@ -26,6 +26,7 @@ the gate, the plain version outside it, as the JAX package dispatches.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -203,14 +204,17 @@ def _ffn_fake(x, w1, b1, w2, b2, f32_out=False):
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor,
-              f32_out: bool = False) -> torch.Tensor:
+              w2: torch.Tensor, b2: torch.Tensor, f32_out: bool = False,
+              gate_rows: Optional[int] = None) -> torch.Tensor:
     """x (..., D): the kernel where the gate takes the shape, else the
-    plain version (``pallas_ffn.fused_ffn``'s dispatch)."""
+    plain version (``pallas_ffn.fused_ffn``'s dispatch). ``gate_rows``:
+    the rows the gate's row term sees, x's by default; a data rank passes
+    the whole batch's, the global shape JAX's gate sees under GSPMD."""
     D = x.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, D)
-    if supports(x2.shape[0], D, w1.shape[1], x.element_size()):
+    if supports(gate_rows or x2.shape[0], D, w1.shape[1],
+                x.element_size()):
         out = ffn(x2.contiguous(), w1, b1, w2, b2, f32_out)
     else:
         out = ffn_plain(x2, w1, b1, w2, b2, f32_out)

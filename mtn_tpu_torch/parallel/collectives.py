@@ -19,11 +19,13 @@ one reduce over ``model``:
   order (results, with no gradient).
 
 And one draw that is not a collective: :func:`sharded_dropout`, the
-dropout of an activation that a rank holds a slice of (the FFN's hidden
-units, the attention probabilities of its heads). The ranks of ``model``
-are seeded alike, so each draws the mask of the whole activation and
-keeps its slice: the ranks' slices are disjoint parts of one mask, as
-JAX's one draw over the global tensor, and not one mask repeated.
+dropout of an activation that a rank holds a part of: its rows of the
+batch over ``data``, and over ``model`` its slice of a sharded activation
+(the FFN's hidden units, the attention probabilities of its heads). Every
+rank is seeded alike, so each draws the mask of the whole activation and
+keeps its part: the ranks' parts are disjoint pieces of one mask, as
+JAX's one draw over the global tensor, and the mesh draws one process's
+masks.
 
 A sum over ranks is taken by the backend in one order for all ranks, so
 every rank holds the same bits after it.
@@ -113,16 +115,30 @@ def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 def sharded_dropout(x: torch.Tensor, rate: float, training: bool,
-                    axis: Optional[Axis], dim: int = -1) -> torch.Tensor:
-    """Dropout of ``x``, this rank's slice along ``dim`` of an activation
-    sharded over ``axis`` (``F.dropout`` without an axis). The mask is
-    this rank's slice of one mask drawn over the whole activation, with
-    ATen's CPU dropout law (``bernoulli_(1 - rate)``, ``div_(1 - rate)``),
-    so on the CPU a rank keeps exactly its slice of one process's mask."""
-    if axis is None or not training or rate == 0.0:
-        return torch.nn.functional.dropout(x, rate, training=training)
-    n = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = n * axis.size
+                    axis: Optional[Axis] = None, dim: int = -1,
+                    data: Optional[Axis] = None,
+                    row_dim: int = 0) -> torch.Tensor:
+    """Dropout of ``x``, this rank's part of an activation whose dimension
+    ``dim`` is sharded over ``axis`` (the model axis) and whose dimension
+    ``row_dim`` holds this rank's rows of the batch over ``data``. The
+    mask is this rank's part of one mask drawn over the whole activation.
+
+    One law on every device and mesh, a world of one included: ATen's
+    CPU dropout (``bernoulli_(1 - rate)``, ``div_(1 - rate)``). On the CPU
+    that is ``F.dropout`` itself; on CUDA ``F.dropout`` is a fused kernel
+    whose bits differ, so drawing it there would part a mesh from one
+    process."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return x * 0
+    shape, cuts = list(x.shape), []
+    for ax, d in ((axis, dim), (data, row_dim)):
+        if ax is not None:
+            n = shape[d]
+            shape[d] = n * ax.size
+            cuts.append((d, ax.rank * n, n))
     noise = x.new_empty(shape).bernoulli_(1 - rate).div_(1 - rate)
-    return x * noise.narrow(dim, axis.rank * n, n)
+    for d, start, n in cuts:
+        noise = noise.narrow(d, start, n)
+    return x * noise

@@ -160,9 +160,15 @@ class Shardings:
         """Cut ``model``'s sharded parameters (and int8 buffers) to this
         rank's slabs in place and put its layers in their tensor-parallel
         mode; returns the :class:`Layout` (None without a ``model`` axis).
+        Under a ``data`` axis its dropout layers (those with a
+        ``data_axis``) draw this rank's rows of the whole batch's masks.
         Call it once, on a model holding full tensors (or none yet: a
         trainer's fresh model, whose state is loaded through the
         layout)."""
+        if self.data is not None:
+            for mod in model.modules():
+                if hasattr(mod, "data_axis"):
+                    mod.data_axis = self.data
         if self.model is None:
             return None
         from mtn_tpu_torch.models.layers import (Embed, MultiHeadAttention,

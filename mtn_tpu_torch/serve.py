@@ -150,15 +150,120 @@ def encode_requests(requests: Sequence[Request], model_cfg, data_cfg, vocab,
                      valid=(np.arange(B) < n))
 
 
-def check_mesh(mesh: Optional[Mapping[str, int]]) -> None:
-    """A session serves from one device: a mesh of axis sizes
-    (``{"data": n, "model": m}``) with an axis larger than 1 raises (a
-    multi-rank server needs its ranks to step in lockstep behind one
-    front end)."""
-    if mesh and any(n > 1 for n in mesh.values()):
-        raise NotImplementedError(
-            "not ported to mtn_tpu_torch yet: serving under a mesh larger "
-            "than one device (ROADMAP: parallel serving)")
+FOLLOW_TIMEOUT_S = 300.0   # a rank's wait for rank 0's next command
+
+
+def _broadcast(obj, group):
+    """``obj`` of rank 0 on every rank of ``group``."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+class Lockstep:
+    """Rank 0's side of a session served by a mesh of processes: one
+    thread runs every call that reaches the model, in the order the calls
+    arrive, each after broadcasting it as a command (``(op, args)``) to
+    the other ranks, which run it in :meth:`ServingSession.follow`. So
+    broadcast order is execution order whichever thread called: the
+    batcher, HTTP handlers, streams or the checkpoint watcher. When no
+    call comes for a quarter of the followers' timeout the thread sends
+    ``ping``, so an idle server keeps its followers waiting and a
+    follower whose rank 0 has vanished fails instead of hanging."""
+
+    def __init__(self, session: "ServingSession", group):
+        import queue
+        import threading
+        self.session = session
+        self.group = group
+        self.commands: Dict[str, int] = {}   # broadcast, by op
+        self.failed: Optional[Exception] = None
+        self._q: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="mtn-lockstep")
+        self._thread.start()
+
+    def call(self, op: str, args: tuple, sink=None):
+        """Run ``op`` on every rank; returns this rank's result. ``sink``
+        receives a stream's words as they are decoded."""
+        from concurrent.futures import Future
+        fut: Future = Future()
+        with self._lock:
+            if self.failed is not None or not self._thread.is_alive():
+                raise RuntimeError("the served mesh has stopped") \
+                    from self.failed
+            self._q.put((op, args, sink, fut))
+        return fut.result()
+
+    def stream(self, args: tuple):
+        """A stream's words as rank 0 decodes them. The stream runs to its
+        end on every rank even when the caller stops reading (a client
+        gone): the followers step with it."""
+        import queue
+        import threading
+        words: "queue.Queue" = queue.Queue()
+        done = object()
+        box = []
+
+        def run():
+            try:
+                self.call("stream", args, sink=words.put)
+            except Exception as e:  # re-raised in the caller
+                box.append(e)
+            finally:
+                words.put(done)
+        threading.Thread(target=run, daemon=True).start()
+        for word in iter(words.get, done):
+            yield word
+        if box:
+            raise box[0]
+
+    def stop(self) -> None:
+        """Send ``stop`` after the calls already queued; the followers
+        return from :meth:`ServingSession.follow`."""
+        if self._thread.is_alive():
+            self.call("stop", ())
+            self._thread.join()
+
+    def _loop(self):
+        import queue
+        if self.session.device.type == "cuda":   # per thread in CUDA
+            torch.cuda.set_device(self.session.device)
+        while True:
+            try:
+                op, args, sink, fut = self._q.get(
+                    timeout=FOLLOW_TIMEOUT_S / 4)
+            except queue.Empty:
+                op, args, sink, fut = "ping", (), None, None
+            try:
+                _broadcast((op, args), self.group)
+            except Exception as e:   # a rank is gone: the mesh is
+                self._fail(e, fut)   # broken for every later call
+                return
+            if fut is None:
+                continue
+            self.commands[op] = self.commands.get(op, 0) + 1
+            try:
+                fut.set_result(None if op == "stop" else
+                               self.session._run(op, args, sink))
+            except Exception as e:  # the caller's failure
+                fut.set_exception(e)
+            if op == "stop":
+                return
+
+    def _fail(self, err: Exception, fut) -> None:
+        import queue
+        with self._lock:
+            self.failed = err
+        if fut is not None:
+            fut.set_exception(err)
+        while True:
+            try:
+                self._q.get_nowait()[3].set_exception(err)
+            except queue.Empty:
+                return
 
 
 class Served(NamedTuple):
@@ -179,7 +284,18 @@ class ServingSession:
     vocabulary head(s) in full precision. ``feature_transfer``: the
     host-to-device feature format ("" the compute dtype, "bfloat16" or
     "int8": int8 features and f32 row scales, dequantized on the
-    device)."""
+    device).
+
+    ``mesh`` (``parallel.make_mesh``, as ``cli.common.
+    make_mesh_from_args`` gives it): the served model is laid out by
+    ``Shardings`` (its slabs on this rank, int8 buffers included) and
+    every request batch is cut over ``data``, as in ``mtn_tpu``. JAX
+    serves a mesh from one process; here each rank of the mesh is a
+    process, and every rank builds the session. Rank 0 answers the calls
+    (respond, rank, stream, reload, warmup) through its :class:`Lockstep`,
+    which broadcasts each to the others, and every other rank runs
+    :meth:`follow` until rank 0 sends ``stop`` (:meth:`close`). A rank
+    waits FOLLOW_TIMEOUT_S for a command at most."""
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor], model_cfg,
                  data_cfg, vocab: Dict[str, int],
@@ -187,27 +303,58 @@ class ServingSession:
                  feature_transfer: str = "", weights_quant: str = "",
                  device: str = "cuda"):
         from mtn_tpu_torch.cli.common import resolve_device
+        from mtn_tpu_torch.train.batch import to_device_fn
         if weights_quant not in ("", "int8", "int8-fp-head"):
             raise ValueError(f"weights_quant {weights_quant!r} "
                              "(expected '', 'int8' or 'int8-fp-head')")
-        check_mesh(mesh)
+        self.decode_cfg = decode_cfg or DecodeConfig()
+        self.mesh_shape = None
+        self.shardings = None
+        if mesh is not None:
+            self.mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            data = self.mesh_shape.get("data", 1)
+            tb = self.decode_cfg.turn_batch
+            if data > 1 and tb % data != 0:
+                raise ValueError(
+                    f"turn_batch {tb} does not divide over the mesh's "
+                    f"data axis ({data}); pick a multiple (the serving "
+                    "CLI shrinks the axis automatically via "
+                    "make_mesh_from_args)")
+            from mtn_tpu_torch.parallel import Shardings
+            self.shardings = Shardings(mesh)
         self.device = resolve_device(device)
         self.weights_quant = weights_quant
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.vocab = vocab
         self.vlist = vocab_list(vocab)
-        self.decode_cfg = decode_cfg or DecodeConfig()
         self.feature_dtype = feature_transfer or model_cfg.dtype
+        self.to_device = to_device_fn(self.feature_dtype, self.shardings,
+                                      self.device)
         self.served = self._build(state_dict)
         self._lb = max(self.data_cfg.length_bucket, 1)
         self._fb = max(self.data_cfg.feature_bucket, 1)
         self._sample_calls = 0  # fold per call so noise isn't reused
         self.epoch = None       # checkpoint epoch currently served
+        self._group = self.lockstep = None
+        self.mesh_rank = 0
+        from mtn_tpu_torch.parallel.mesh import world_size
+        if mesh is not None and world_size() > 1:
+            import datetime
+
+            import torch.distributed as dist
+            # the commands travel on the host, over gloo, whose waits
+            # raise at the timeout (an NCCL wait would abort the process)
+            self._group = dist.new_group(backend="gloo", timeout=(
+                datetime.timedelta(seconds=FOLLOW_TIMEOUT_S)))
+            self.mesh_rank = dist.get_rank()
+            if self.mesh_rank == 0:
+                self.lockstep = Lockstep(self, self._group)
 
     def _build(self, state_dict) -> Served:
-        """The model on the session's device, quantized if asked, and its
-        decoder. Grad mode is per thread: set here, not inherited."""
+        """The model on the session's device, quantized if asked and cut
+        to this rank's slabs under a mesh, and its decoder. Grad mode is
+        per thread: set here, not inherited."""
         from mtn_tpu_torch.decode.beam import BeamDecoder
         from mtn_tpu_torch.utils.quantize import quantize_model
         from mtn_tpu_torch.weights import load_model
@@ -217,7 +364,10 @@ class ServingSession:
                 quantize_model(
                     model, state_dict,
                     skip_generator=self.weights_quant == "int8-fp-head")
-        return Served(model, BeamDecoder(model, self.decode_cfg))
+            if self.shardings is not None:
+                self.shardings.shard_model(model)
+        return Served(model, BeamDecoder(model, self.decode_cfg,
+                                         shardings=self.shardings))
 
     @property
     def model(self) -> torch.nn.Module:
@@ -227,9 +377,17 @@ class ServingSession:
     def decoder(self) -> BeamDecoder:
         return self.served.decoder
 
-    def to_device(self, hb: HostBatch):
-        from mtn_tpu_torch.train.batch import device_batch
-        return device_batch(hb, self.device, self.feature_dtype)
+    def _data_size(self) -> int:
+        sh = self.shardings
+        return sh.data.size if sh is not None and sh.data is not None else 1
+
+    def encode(self, requests: Sequence[Request], rows: int = 0
+               ) -> HostBatch:
+        """``requests`` as one host batch padded to ``rows`` rows and the
+        session's length buckets."""
+        return encode_requests(requests, self.model_cfg, self.data_cfg,
+                               self.vocab, self._lb, self._fb,
+                               pad_rows_to=rows)
 
     @classmethod
     def from_checkpoint(cls, model_arg: str,
@@ -264,34 +422,135 @@ class ServingSession:
         session.epoch = used_epoch
         return session
 
+    # -- the calls that reach the model ---------------------------------------
+    def _call(self, op: str, *args, sink=None):
+        """Run command ``op``: here, or under a mesh of processes on every
+        rank through rank 0's :class:`Lockstep`."""
+        if self.lockstep is not None:
+            return self.lockstep.call(op, args, sink)
+        self._check_caller()
+        return self._run(op, args, sink)
+
+    def _check_caller(self) -> None:
+        if self._group is not None and self.lockstep is None:
+            raise RuntimeError(
+                f"rank {self.mesh_rank} of a served mesh runs rank 0's "
+                "calls: call follow()")
+
+    def _run(self, op: str, args: tuple, sink=None):
+        """One command on this rank (the model's collectives inside)."""
+        if op == "reload":
+            return self._reload(*args)
+        if op == "stream":
+            for word in self._stream_words(*args):
+                if sink is not None:
+                    sink(word)
+            return None
+        decoder = self.decoder   # one snapshot: a reload does not reach it
+        db = self.to_device(args[0])
+        if op == "beam":
+            return decoder.beam_batch_raw(db), decoder.gather_rows(db.valid)
+        if op == "rank":
+            return (decoder.rank_batch_raw(db, args[1],
+                                           include_eos=args[2]),
+                    decoder.gather_rows(db.valid))
+        if op == "greedy":
+            return decoder.greedy_batch(db)
+        if op == "sample":
+            return decoder.sample_batch(db, fold=args[1])
+        raise ValueError(f"unknown serving command {op!r}")
+
+    def follow(self) -> Dict[str, int]:
+        """The loop of a rank other than 0: run rank 0's commands in their
+        order until ``stop``; returns how many of each it ran. A command
+        that fails here raises (the process should exit non-zero: rank 0's
+        call then fails in its collectives), and so does a wait for the
+        next command longer than FOLLOW_TIMEOUT_S."""
+        if self._group is None or self.mesh_rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 "
+                               "of a served mesh")
+        done: Dict[str, int] = {}
+        while True:
+            op, args = _broadcast(None, self._group)
+            if op == "stop":
+                return done
+            if op != "ping":
+                self._run(op, args)
+                done[op] = done.get(op, 0) + 1
+
+    def close(self) -> None:
+        """Under a mesh of processes, rank 0 sends ``stop``: the other
+        ranks return from :meth:`follow`. Nothing to do on one process."""
+        if self.lockstep is not None:
+            self.lockstep.stop()
+
+    def _next_fold(self) -> int:
+        fold = self._sample_calls
+        self._sample_calls += 1
+        return fold
+
+    def beam_raw(self, hb: HostBatch):
+        """Beam-decode a host batch: (``BeamRaw`` on the device, the valid
+        rows), the whole batch's under a data axis."""
+        return self._call("beam", hb)
+
+    def rank_raw(self, hb: HostBatch, cand_ids, include_eos: bool = True):
+        """Score candidates on a host batch (``cand_ids``: one list per row
+        of the whole batch): (``rank_batch_raw``'s pair, the valid
+        rows)."""
+        return self._call("rank", hb, cand_ids, include_eos)
+
+    # -- reload -------------------------------------------------------------
     def reload(self, model_arg: Optional[str] = None) -> int:
         """Hot-swap the served weights from a checkpoint of the same
         architecture; returns its epoch. A new model is built on the
         device (quantized like the old one) and swapped in by one
         assignment, so decodes already running finish on the old weights
         and later ones use the new. A checkpoint that does not fit the
-        served architecture raises ValueError."""
-        from mtn_tpu_torch.cli.generate import _split_model_arg
-        from mtn_tpu_torch.weights import load_checkpoint
-
+        served architecture raises ValueError. Under a mesh every rank
+        builds the new model, and all swap or none does: a rank that
+        fails leaves every rank on the old weights, and rank 0 raises."""
         arg = model_arg or getattr(self, "model_arg", None)
         if not arg:
             raise ValueError("no checkpoint path: session was not built "
                              "via from_checkpoint and model_arg is None")
+        epoch, err = self._call("reload", arg)
+        if err is not None:
+            raise err
+        return epoch
+
+    def _reload(self, arg: str):
+        """(epoch, None) once swapped, or (None, the error)."""
+        from mtn_tpu_torch.cli.generate import _split_model_arg
+        from mtn_tpu_torch.weights import load_checkpoint
         prefix, epoch = _split_model_arg(arg)
+        err = None
         try:
             state_dict, used_epoch = load_checkpoint(prefix, epoch)
             served = self._build(state_dict)
-        except (ValueError, FileNotFoundError):
-            raise
+        except (ValueError, FileNotFoundError) as e:
+            err = e
         except Exception as e:  # key, shape or read failures
-            raise ValueError(
+            err = ValueError(
                 f"cannot restore {arg} into the served architecture: "
-                f"{type(e).__name__}: {e}") from e
+                f"{type(e).__name__}: {e}")
+        if self._group is not None:
+            import torch.distributed as dist
+            errs = [None] * dist.get_world_size(self._group)
+            dist.all_gather_object(
+                errs,
+                None if err is None else f"rank {self.mesh_rank}: {err}",
+                group=self._group)
+            failed = [e for e in errs if e is not None]
+            if failed and err is None:
+                err = ValueError("reload refused, every rank keeps the "
+                                 "served weights: " + "; ".join(failed))
+        if err is not None:
+            return None, err
         self.served = served  # atomic
         self.model_arg = arg
         self.epoch = used_epoch
-        return used_epoch
+        return used_epoch, None
 
     def warmup(self, stream: bool = False) -> float:
         """Run the session's decode on a blank padded request (and the
@@ -308,26 +567,24 @@ class ServingSession:
 
     def respond_batch(self, requests: Sequence[Request]
                       ) -> List[Tuple[str, float]]:
+        from mtn_tpu_torch.decode.beam import BeamDecoder
         # pad the batch axis to turn_batch so every batch of at most
-        # turn_batch requests has one shape
-        rows = max(len(requests), self.decode_cfg.turn_batch)
-        decoder = self.decoder
-        db = self.to_device(encode_requests(
-            requests, self.model_cfg, self.data_cfg, self.vocab, self._lb,
-            self._fb, pad_rows_to=rows))
+        # turn_batch requests has one shape (a larger batch pads to a
+        # multiple of the data axis)
+        tb = self.decode_cfg.turn_batch
+        rows = tb if len(requests) <= tb else \
+            _round_up(len(requests), self._data_size())
+        hb = self.encode(requests, rows)
         eos = self.vocab["<eos>"]
         style = self.decode_cfg.decode_style
         if style in ("greedy", "sample"):
-            if style == "sample":
-                rows_out = decoder.sample_batch(db, fold=self._sample_calls)
-                self._sample_calls += 1
-            else:
-                rows_out = decoder.greedy_batch(db)
+            rows_out = (self._call("sample", hb, self._next_fold())
+                        if style == "sample" else self._call("greedy", hb))
             return [DecodeResult([(detokenize(r, self.vlist, eos), 0.0)])
                     for r in rows_out]
         return [DecodeResult([(a, float(s)) for a, s in
                               res.texts(self.vlist, eos)])
-                for res in decoder.beam_batch(db)]
+                for res in BeamDecoder.beam_results(*self.beam_raw(hb))]
 
     def respond(self, question: str, history: Sequence[Tuple[str, str]] = (),
                 caption: str = "",
@@ -349,14 +606,16 @@ class ServingSession:
         ``[(candidate, logp, rank), ...]`` in input order; ``rank`` is the
         1-indexed position under descending log-likelihood
         (``evalmetrics.retrieval.rank_of``'s tie law)."""
+        from mtn_tpu_torch.decode.beam import BeamDecoder
         if not candidates:
             raise ValueError("no candidates to rank")
-        # one row: the turn is tiled over its candidates on the device
-        db = self.to_device(encode_requests(
-            [request], self.model_cfg, self.data_cfg, self.vocab, self._lb,
-            self._fb))
-        scores = self.decoder.rank_batch(db, [self.cand_ids(candidates)],
-                                         include_eos=include_eos)[0]
+        # one row (a row per data rank under a mesh): the turn is tiled
+        # over its candidates on the device
+        hb = self.encode([request], self._data_size())
+        cands = [self.cand_ids(candidates)] + \
+            [[] for _ in range(hb.query.shape[0] - 1)]
+        scores = BeamDecoder.rank_results(*self.rank_raw(
+            hb, cands, include_eos))[0]
         return [(c, s, rank_of(scores, i))
                 for i, (c, s) in enumerate(zip(candidates, scores))]
 
@@ -369,16 +628,21 @@ class ServingSession:
             style = self.decode_cfg.decode_style
             if style == "beam_search":
                 style = "greedy"
-        decoder = self.decoder
-        db = self.to_device(encode_requests(
-            [request], self.model_cfg, self.data_cfg, self.vocab, self._lb,
-            self._fb, pad_rows_to=self.decode_cfg.turn_batch))
-        fold = 0
-        if style == "sample":
-            fold = self._sample_calls
-            self._sample_calls += 1
+        if style not in ("greedy", "sample"):
+            raise ValueError(f"stream: style {style!r} "
+                             "(beam n-bests cannot stream)")
+        hb = self.encode([request], self.decode_cfg.turn_batch)
+        args = (hb, style, self._next_fold() if style == "sample" else 0)
+        if self.lockstep is not None:
+            yield from self.lockstep.stream(args)
+        else:
+            self._check_caller()
+            yield from self._stream_words(*args)
+
+    def _stream_words(self, hb: HostBatch, style: str, fold: int):
         eos = self.vocab["<eos>"]
-        for step_tokens in decoder.stream_tokens(db, style=style, fold=fold):
+        for step_tokens in self.decoder.stream_tokens(
+                self.to_device(hb), style=style, fold=fold):
             t = int(step_tokens[0])   # the one valid row
             if t == eos:
                 return
@@ -504,21 +768,15 @@ class AsyncServer:
             return None
         kind = items[0][0]
         s = self.session
-        decoder = s.decoder  # one snapshot: a reload does not reach it
-        reqs = [r for _, r, _, _ in items]
-        db = s.to_device(encode_requests(
-            reqs, s.model_cfg, s.data_cfg, s.vocab, s._lb, s._fb,
-            pad_rows_to=s.decode_cfg.turn_batch))
+        hb = s.encode([r for _, r, _, _ in items], s.decode_cfg.turn_batch)
         if kind == "rank":
-            include_eos = items[0][2][1]
             cand_ids = [s.cand_ids(extra[0]) for _, _, extra, _ in items]
-            cand_ids += [[] for _ in range(db.query.shape[0] - len(items))]
-            raw = decoder.rank_batch_raw(db, cand_ids,
-                                         include_eos=include_eos)
+            cand_ids += [[] for _ in range(hb.query.shape[0] - len(items))]
+            raw, valid = s.rank_raw(hb, cand_ids, include_eos=items[0][2][1])
         else:
-            raw = decoder.beam_batch_raw(db)
+            raw, valid = s.beam_raw(hb)
         self.launches += 1
-        return (kind, items, raw, db.valid)
+        return (kind, items, raw, valid)
 
     def _drain(self, inflight_item):
         from mtn_tpu_torch.decode.beam import BeamDecoder

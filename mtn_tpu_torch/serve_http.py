@@ -42,10 +42,13 @@ API (all JSON)::
                             ``data: {"done": true, "answer": str}``.
                             Beam sessions stream greedily (an n-best
                             cannot stream token by token).
-    GET  /healthz       ->  {"ok": true}
+    GET  /healthz       ->  {"ok": true} (+ "mesh": {"data", "model"}
+                            under a mesh)
     GET  /stats         ->  {"requests", "errors", "launches",
                              "uptime_s", "decode_style", "turn_batch",
                              "latency": {count, mean_ms, p50_ms, p90_ms}}
+                            (+ "mesh" and "commands", the calls rank 0
+                            broadcast by kind, under a mesh)
     GET  /metrics       ->  Prometheus text exposition (request/error/
                             launch/reload counters + request-latency
                             histogram + uptime)
@@ -92,6 +95,19 @@ serializes behind the session lock (no ``AsyncServer``); ``/v1/rank`` and
 ``/v1/stream`` answer 501 where the artifact lacks their programs;
 ``/admin/reload`` and ``--watch-seconds`` swap in a re-export (a changed
 ``export_id`` in its ``meta.json``).
+
+Under a mesh (``--mesh-data``, ``--mesh-model``) the port runs one
+process per device, joined by ``--multihost`` (``auto`` under
+``torchrun``, or ``host:port,nprocs,procid``, as the other CLIs)::
+
+    torchrun --nproc-per-node 2 -m mtn_tpu_torch.serve_http \
+        --multihost auto --mesh-data 2 --model exps/x/mtn_best
+
+Every rank loads its part of the model (``ServingSession(mesh=)``).
+Rank 0 binds the port and serves every route; each call that reaches
+the model is broadcast to the other ranks, which run it in lockstep
+(``ServingSession.follow``) and exit 0 when rank 0 shuts down. The
+counters are rank 0's.
 """
 
 from __future__ import annotations
@@ -417,6 +433,16 @@ class MTNServer(ThreadingHTTPServer):
         with self._count_lock:
             return self._admitted
 
+    def mesh(self) -> dict:
+        """The mesh's axis sizes and the commands rank 0 broadcast, under
+        a mesh; else empty."""
+        shape = getattr(self.session, "mesh_shape", None)
+        if not shape:
+            return {}
+        lockstep = getattr(self.session, "lockstep", None)
+        return {"mesh": shape, "commands": dict(
+            lockstep.commands) if lockstep is not None else {}}
+
     def stats(self) -> dict:
         with self._count_lock:
             n, e, rej = self.n_requests, self.n_errors, self.n_rejected
@@ -443,6 +469,7 @@ class MTNServer(ThreadingHTTPServer):
             # an exported artifact (serve_http --aot) or a live session
             "aot": bool(getattr(self.session, "is_aot", False)),
             "latency": self.latency.summary(),
+            **self.mesh(),
         }
 
     def metrics_text(self) -> str:
@@ -503,6 +530,17 @@ class MTNServer(ThreadingHTTPServer):
                 % (le, cum))
         lines.append(f"mtn_request_latency_seconds_sum {lat_sum:.6f}")
         lines.append(f"mtn_request_latency_seconds_count {lat_count}")
+        mesh = self.mesh()
+        if mesh:
+            lines += ["# HELP mtn_mesh_size Ranks on each mesh axis.",
+                      "# TYPE mtn_mesh_size gauge"]
+            lines += [f'mtn_mesh_size{{axis="{a}"}} {n}'
+                      for a, n in mesh["mesh"].items()]
+            lines += ["# HELP mtn_commands_total Calls rank 0 broadcast "
+                      "to the mesh, by kind.",
+                      "# TYPE mtn_commands_total counter"]
+            lines += [f'mtn_commands_total{{op="{op}"}} {n}'
+                      for op, n in sorted(mesh["commands"].items())]
         return "\n".join(lines) + "\n"
 
     def count(self, error: bool = False):
@@ -658,7 +696,9 @@ class _Handler(BaseHTTPRequestHandler):
                 # 503 so load balancers eject the draining instance
                 self._send(503, {"ok": False, "draining": True})
             else:
-                self._send(200, {"ok": True})
+                mesh = self.server.mesh()
+                self._send(200, {"ok": True, **(
+                    {"mesh": mesh["mesh"]} if mesh else {})})
         elif self.path == "/stats":
             self._send(200, self.server.stats())
         elif self.path == "/metrics":
@@ -857,8 +897,9 @@ def main(argv=None) -> int:
     import argparse
     import logging
 
-    from mtn_tpu_torch.cli.common import (add_logging_args, resolve_device,
+    from mtn_tpu_torch.cli.common import (add_logging_args, init_parallel,
                                           setup_logging)
+    from mtn_tpu_torch.parallel.multihost import shutdown
     from mtn_tpu_torch.config import DecodeConfig
 
     parser = argparse.ArgumentParser(
@@ -905,10 +946,14 @@ def main(argv=None) -> int:
                              "hot-reload when its best/latest epoch "
                              "changes (0 = off)")
     parser.add_argument("--mesh-data", default=-1, type=int,
-                        help="data-parallel size; only one device (-1 or "
-                             "1) is ported")
+                        help="data-parallel mesh axis size (-1: all ranks)")
     parser.add_argument("--mesh-model", default=1, type=int,
-                        help="tensor-parallel size; only 1 is ported")
+                        help="tensor-parallel mesh axis size")
+    parser.add_argument("--multihost", default="", type=str,
+                        help="'auto' (torchrun's environment) or "
+                             "'host:port,nprocs,procid': serve under a "
+                             "mesh of processes, one per device; rank 0 "
+                             "binds the port, the others follow it")
     parser.add_argument("--fused-decode-qkv", default=0, type=int,
                         help="fuse decode-time self-attention q/k/v into "
                              "one (D, 3D) product")
@@ -945,8 +990,8 @@ def main(argv=None) -> int:
         frozen = ["beam", "penalty", "nbest", "maxlen", "min_len",
                   "decode_style", "temperature", "top_k", "top_p",
                   "sample_seed", "turn_batch", "mesh_data", "mesh_model",
-                  "fused_decode_qkv", "feature_transfer", "weights_quant",
-                  "use_pallas_attention", "use_pallas_ffn"]
+                  "multihost", "fused_decode_qkv", "feature_transfer",
+                  "weights_quant", "use_pallas_attention", "use_pallas_ffn"]
         bad = [f for f in frozen
                if getattr(args, f) != parser.get_default(f)]
         if bad:
@@ -961,7 +1006,7 @@ def main(argv=None) -> int:
                      "buckets %s)", args.aot, session.model_arg,
                      session.epoch, session.buckets)
     else:
-        resolve_device(args.device)
+        device, shardings = init_parallel(args, args.turn_batch)
         decode_cfg = DecodeConfig(
             maxlen=args.maxlen, beam=args.beam, penalty=args.penalty,
             nbest=args.nbest, min_len=args.min_len,
@@ -973,15 +1018,21 @@ def main(argv=None) -> int:
                      "fused_decode_qkv": bool(args.fused_decode_qkv)}
         session = ServingSession.from_checkpoint(
             args.model, decode_cfg,
-            mesh={"data": args.mesh_data, "model": args.mesh_model},
+            mesh=shardings.mesh if shardings is not None else None,
             model_overrides=overrides,
             feature_transfer=args.feature_transfer,
-            weights_quant=args.weights_quant, device=args.device)
+            weights_quant=args.weights_quant, device=str(device))
     if session.model_cfg.dtype == "float32":
         import torch
         # full f32 products (no TF32), as the JAX package asks "highest"
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if getattr(session, "mesh_rank", 0) != 0:
+        done = session.follow()
+        logging.info("rank %d: rank 0 stopped; ran %s", session.mesh_rank,
+                     json.dumps(done, sort_keys=True))
+        shutdown()
+        return 0
     if args.warmup:
         sec = session.warmup(stream=True)
         logging.info("warmup: decode paths ran in %.1fs", sec)
@@ -995,14 +1046,19 @@ def main(argv=None) -> int:
         logging.info("watching %s every %.1fs for new checkpoints",
                      args.model or args.aot, args.watch_seconds)
     logging.info("serving %s on http://%s:%d (style=%s, turn_batch=%d, "
-                 "device=%s)", args.model or args.aot, *srv.server_address,
-                 session.decode_cfg.decode_style,
-                 session.decode_cfg.turn_batch, session.device)
+                 "device=%s, mesh=%s)", args.model or args.aot,
+                 *srv.server_address, session.decode_cfg.decode_style,
+                 session.decode_cfg.turn_batch, session.device,
+                 getattr(session, "mesh_shape", None))
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
         logging.info("shutting down")
         srv.close()
+    finally:
+        if hasattr(session, "close"):
+            session.close()   # under a mesh: the other ranks stop
+        shutdown()
     return 0
 
 

@@ -31,13 +31,12 @@ tensors. Each data rank runs its rows of the batch; the loss is
 normalised by the token counts summed over ``data``, so the ranks' losses
 and f32 gradients, summed over ``data`` (in ~32 MB buckets), are the
 whole batch's. Clipping takes the global norm: the squares of sharded
-gradients summed over ``model``, replicated ones counted once. Dropout
-folds the data rank into its key, so data ranks draw different masks.
-The model ranks of a data rank are seeded alike: their replicated
-activations draw one mask, and a sharded activation (the FFN's hidden
-units, the attention probabilities) is dropped by this rank's slice of
-the whole activation's mask (``collectives.sharded_dropout``), so a
-``1 x model`` mesh draws one process's masks.
+gradients summed over ``model``, replicated ones counted once. Every
+rank is seeded alike, and each dropout keeps this rank's part of the mask
+of the whole activation: its rows of the batch, and its slice of an
+activation sharded over ``model`` (the FFN's hidden units, the attention
+probabilities; ``collectives.sharded_dropout``), so a mesh draws one
+process's masks, as JAX's one key for the global batch does.
 
 :meth:`Trainer.run_epoch` keeps each step's loss on the device and reads
 it a few steps behind (a pinned copy and an event per step on a GPU), so
@@ -250,10 +249,7 @@ class Trainer:
 
     @contextlib.contextmanager
     def _rng(self, *key: int):
-        """Seed torch's generators from ``key`` (and the data rank)
-        inside a forked state."""
-        if self.data is not None:
-            key = key + (self.data.rank,)
+        """Seed torch's generators from ``key`` inside a forked state."""
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(step_seed(*key))

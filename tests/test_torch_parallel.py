@@ -139,3 +139,25 @@ def test_rows_of_a_batch_per_data_rank():
     assert Shardings().rows(5) == slice(0, 5)
     with pytest.raises(ValueError, match="does not divide"):
         sh[0].rows(6)
+
+
+@pytest.mark.parametrize("rows,data", [(256, 1), (256, 2), (128, 2),
+                                       (160, 1), (40, 4)])
+def test_ffn_gate_sees_the_whole_batchs_rows(monkeypatch, rows, data):
+    """Under a data axis the FFN kernel's gate takes the whole batch's
+    rows, the global shape JAX's gate sees under GSPMD: a data rank's 256
+    rows of a 512-row batch stay plain, as in JAX."""
+    from mtn_tpu.ops.pallas_ffn import supports as jax_supports
+    from mtn_tpu_torch.models.layers import FeedForward
+    from mtn_tpu_torch.ops import ffn_kernel
+    launched = []
+    kernel = ffn_kernel.ffn
+    monkeypatch.setattr(ffn_kernel, "ffn", lambda *a: launched.append(
+        1) or kernel(*a))
+    D, F = 64, 512
+    ff = FeedForward(D, F, 0.0, torch.bfloat16, use_kernel=True).eval()
+    if data > 1:
+        ff.data_axis = Axis(data, 0)
+    ff(torch.zeros(rows // 8, 8, D))
+    assert bool(launched) == jax_supports(rows * data, D, F, 2) == (
+        rows * data <= 256)

@@ -18,6 +18,7 @@ import os
 import shutil
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -359,8 +360,14 @@ def test_model_overrides_and_refusals(bridged):
         _port(prefix, dcfg=BEAM, model_overrides={"nope": 1})
     with pytest.raises(ValueError, match="weights_quant"):
         _port(prefix, dcfg=BEAM, weights_quant="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallel"):
-        _port(prefix, dcfg=BEAM, mesh={"data": 2, "model": 1})
+    # JAX's refusal of a turn batch that does not divide over the data
+    # axis, before the mesh is used (tests/test_torch_serve_parallel.py
+    # serves real meshes)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(3, 1))
+    with pytest.raises(ValueError, match="does not divide over the "
+                       "mesh's data axis"):
+        _port(prefix, dcfg=BEAM, mesh=mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             ServingSession.from_checkpoint(prefix + "_best")

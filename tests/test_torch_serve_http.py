@@ -516,9 +516,16 @@ def test_main_refuses_aot_and_a_missing_gpu(checkpoint, tmp_path, capsys):
         main(["--aot", str(tmp_path / "artifact"), "--beam", "3"])
     assert ei.value.code == 2
     assert "frozen in the AOT artifact" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallel"):
+    with pytest.raises(SystemExit) as ei:
+        main(["--aot", str(tmp_path / "artifact"), "--mesh-data", "2"])
+    assert ei.value.code == 2
+    assert "--mesh-data: frozen in the AOT artifact" in \
+        capsys.readouterr().err
+    # the mesh flags are ported (tests/test_torch_serve_parallel.py); a
+    # mesh larger than the world fails JAX's make_mesh assert
+    with pytest.raises(AssertionError, match="mesh 2x2 > 1 devices"):
         main(["--model", prefix + "_best", "--device", "cpu",
-              "--mesh-data", "2"])
+              "--mesh-data", "2", "--mesh-model", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(["--model", prefix + "_best"])

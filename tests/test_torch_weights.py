@@ -126,7 +126,8 @@ def test_port_imports_no_jax_and_nothing_of_mtn_tpu():
                  "utils.profiling", "utils.average", "ops.matmul",
                  "utils.aot", "decode.steps", "parallel.mesh",
                  "parallel.multihost", "parallel.sharding",
-                 "parallel.collectives"):
+                 "parallel.collectives", "serve", "serve_http",
+                 "utils.migrate"):
         assert f"mtn_tpu_torch.{name}" in loaded, name
 
 

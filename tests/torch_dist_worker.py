@@ -6,8 +6,9 @@
 Reads ``<dir>/inputs.pt`` (the test's seeded parameters, batch, configs
 and CLI arguments), runs on a (D, M) mesh of ``mtn_tpu_torch.parallel``:
 three train steps, a checkpoint save and restore, a step at dropout and
-attention dropout 0.1,
-beam, greedy, sample and rank decodes, an int8 beam decode; writes what
+attention dropout 0.1, one update from two 4-row microbatches
+(``train_step_accum``), beam, greedy, sample and rank decodes, an int8
+beam decode; writes what
 it saw to ``<dir>/<DxM>_r<rank>.pt``. Then it runs ``cli.generate``,
 ``cli.rank`` and ``cli.train`` under ``--multihost`` and the same mesh
 flags, on the three other ports, writing ``<dir>/<DxM>_generate.json``,
@@ -67,6 +68,17 @@ def scenarios(rank, world, port, mesh, d):
     out["dropout_loss"] = float(tr.train_step(tr.state_from(inp["params"]),
                                               db, 1)[1]["loss"])
 
+    tr = Trainer(inp["cfg"], TrainConfig(warmup_steps=10), "cpu",
+                 shardings=sh)
+    b = inp["batch"]
+    micro = [sh.put_host_batch(HostBatch(**{
+        k: [a[lo:lo + 4] for a in v] if k in ("fts", "fts_len")
+        else v[lo:lo + 4] for k, v in b.items()}), "cpu") for lo in (0, 4)]
+    state, m = tr.train_step_accum(tr.state_from(inp["params"]), micro, 1)
+    out["accum_loss"] = float(m["loss"])
+    gather = tr.layout.gather if tr.layout is not None else dict
+    out["accum_params"] = gather(state.params)
+
     dec_cfg = DecodeConfig(**inp["decode"])
     net = load_model(inp["decode_cfg"], inp["params"], "cpu")
     sh.shard_model(net)
@@ -97,7 +109,8 @@ def clis(rank, world, ports, mesh, inp, d):
         "--output", os.path.join(d, f"{mesh}_rank.json")]) == 0
     prefix = os.path.join(d, f"{mesh}_train", "mtn")
     assert train.main([prefix if a == "MODEL" else a
-                       for a in inp["train_argv"]] + mh(ports[2])) == 0
+                       for a in inp["train_argv"]] + mh(ports[2]) + [
+                           "--uniform-shapes", "1", "--accum-steps", "2"]) == 0
 
 
 def main():
