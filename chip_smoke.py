@@ -37,7 +37,24 @@
    (f32, plain versions) on a small batch;
 6. profiles one warm turn batch of the main path (torch.profiler): host
    wall time, device time by kernel group, the hand-written kernels'
-   device time per call, and the device's idle share; then ``[parallel]``
+   device time per call, and the device's idle share. Every decode batch
+   of the one-process paths runs as captured CUDA graphs once its shape
+   has come back (``mtn_tpu_torch/decode/graphs.py``; a shape's first
+   batch, meshes, streams and the AOT session run eagerly), and the
+   kernels' launch counts add each graph's launches at every replay.
+   ``[graphs]``: the flagship in bf16 and f32 (both kernels) on the
+   64-turn set, 32 turns a batch: beam (early stop on and off: n-best
+   tokens, scores, lengths and step counts), greedy, sampled and rank
+   decodes bitwise equal through the eager loop and the captured
+   programs, with launches of each; one beam batch eager and graphed
+   under torch.profiler (both kernels seen inside the replays, and in
+   every profiled call the profiler's count of each kernel equal to its
+   own count); the sweep of the chunk length k over 1, 2, 4, 8 and 30
+   (host wall per warm batch, device busy, idle share, device launches,
+   host reads and replays a batch, capture seconds per program and the
+   bytes a program set holds); ``cli.generate --uniform-shapes 0`` at 8
+   turns a batch, eager and graphed (bitwise equal JSON, responses/sec,
+   the shapes, captures and eager batches); then ``[parallel]``
    (the main path's ``cli.generate`` in a NCCL world of one through
    ``--multihost``, its JSON bitwise ``[main]``'s; two ranks on the card
    over gloo as a 2x1 and a 1x2 mesh, spawned through the port's Python
@@ -66,8 +83,10 @@
    batch reassembled, equal to the batch decoders token for token),
    ``[rank]`` (``scripts/make_rank_candidates.py`` with 100 options, then
    ``python -m mtn_tpu_torch.cli.rank`` at 2 turns a batch through both
-   kernels, counted, with its retrieval block; 2 turns' f32 scores on the
-   card against the CPU within 1e-3) and ``[evaluate]`` (``python -m
+   kernels, counted, with its retrieval block and its decoder's shapes
+   and captures; the same command through the eager loops, its JSON
+   bitwise equal; 2 turns' f32 scores on the card against the CPU within
+   1e-3) and ``[evaluate]`` (``python -m
    mtn_tpu_torch.cli.evaluate`` on the beam result: the Bleu_1..CIDEr
    block, meaningless on random weights); then ``[int8]``
    (``cli.generate --weights-quant`` int8-fp-head and int8, counted:
@@ -78,7 +97,9 @@
    ``[serve]`` (an in-process ``serve_http.start_server`` over a bf16
    beam session with both kernels at 16 turns a batch, then over an
    int8-fp-head one: /v1/respond bitwise equal to the session's own
-   answer, 32 requests from 8 threads in fewer launches, /v1/rank with
+   answer, 32 requests from 8 threads in fewer launches (with the
+   decoder's shapes and captures in that load; for bf16 the load again
+   through the eager loops, then graphed and warm), /v1/rank with
    100 candidates, a reassembled /v1/stream equal to the greedy decode,
    /admin/reload, /metrics; kernel launches counted over the HTTP
    traffic: both kernels for bf16, attention and never the FFN for
@@ -150,6 +171,7 @@ the package beside it. Its last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -689,7 +711,8 @@ def profile_decode(torch, prefix, test_set, fea_path):
     db = device_batch(hb, "cuda", "bfloat16")
     dec = BeamDecoder(model, DecodeConfig(maxlen=30, beam=5, nbest=5,
                                           penalty=1.0))
-    dec.beam_batch_raw(db)
+    dec.beam_batch_raw(db)   # the shape's first batch runs eagerly,
+    dec.beam_batch_raw(db)   # its second captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     raw = dec.beam_batch_raw(db)
@@ -715,6 +738,318 @@ def profile_decode(torch, prefix, test_set, fea_path):
                 g: groups.get(g, 0.0) * 1e3 / n if measured and n
                 else "not measured" for g, n in calls.items()},
             "top_kernels": top}
+
+
+# -- [graphs]: each decode batch as captured device programs -----------------
+GRAPH_CHUNKS = (1, 2, 4, 8, 30)   # the sweep of k, maxlen last
+GRAPH_DECODE = dict(maxlen=30, beam=5, nbest=5, penalty=1.0)
+GRAPH_SAMPLE = dict(maxlen=30, temperature=1.0, top_k=50, top_p=0.9,
+                    sample_seed=1)
+
+
+def flagship_batches(corpus: dict, rows: int):
+    """Every batch of ``rows`` turns of the undisclosed test set at one
+    shape (the main path's ``uniform_shapes``), the config and the
+    checkpoint."""
+    from mtn_tpu_torch.config import config_from_dict
+    from mtn_tpu_torch.data.batching import (make_batch, make_batch_indices,
+                                             uniform_plans)
+    from mtn_tpu_torch.data.dataset import load
+    from mtn_tpu_torch.weights import load_checkpoint, load_conf
+    vocab, conf = load_conf(corpus["prefix"])
+    data = load(conf["data"]["fea_type"], corpus["fea_path"],
+                corpus["test_set"], vocab, include_caption="caption,summary",
+                separate_caption=True, undisclosed_only=True)
+    plans, _ = make_batch_indices(data, rows, max_length=10 ** 9,
+                                  separate_caption=True)
+    hbs = [make_batch(data, plan, separate_caption=True, length_bucket=32,
+                      feature_bucket=32, pad_rows_to=rows)
+           for plan in uniform_plans(plans)]
+    return (hbs, config_from_dict("model", conf["model"]),
+            load_checkpoint(corpus["prefix"])[0])
+
+
+def eager_twin(dec):
+    """A decoder on ``dec``'s model and config that runs the eager loops
+    (the decoder's own switch, set on this instance)."""
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    twin = BeamDecoder(dec.model, dec.cfg)
+    twin.graphed = lambda t: False
+    return twin
+
+
+def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
+    """Every decode mode on ``dbs`` through the eager loop and through a
+    graphed decoder (three times: a shape's first batch runs eagerly, its
+    second captures), compared bitwise: beam with early stop on and off
+    (n-best tokens, scores, lengths, step counts), greedy and sampled
+    tokens, rank log-probs."""
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    out = {}
+
+    def compare(name, dec, fn, same, batches=dbs):
+        twin, secs = eager_twin(dec), []
+
+        def timed(d):
+            t0 = time.perf_counter()
+            res = [fn(d, db) for db in batches]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            return res
+        eager, e_n, _ = run_path(torch, ak, fk, lambda: timed(twin))
+        runs = [run_path(torch, ak, fk, lambda: timed(dec))
+                for _ in range(3)]
+        ps = list(dec.graphs.sets.values())
+        out[name] = dict(
+            bitwise=all(same(a, r) for run, _, _ in runs
+                        for a, r in zip(eager, run)),
+            launches_eager=e_n,
+            launches_graphed=[n for _, n, _ in runs], eager_s=secs[0],
+            graphed_s=secs[1:], capture_s=[p.capture_s() for p in ps],
+            reads=sum(p.reads for p in ps), replays=sum(p.replays for p in ps),
+            runner=runner_counts([dec.graphs]))
+        return eager
+
+    def same_raw(a, b):
+        return a.n_steps == b.n_steps and all(
+            torch.equal(x, y) for x, y in zip(
+                (a.comp_scores, a.comp_buf, a.comp_len),
+                (b.comp_scores, b.comp_buf, b.comp_len)))
+    for es in (True, False):
+        dec = BeamDecoder(model, DecodeConfig(early_stop=es, **GRAPH_DECODE))
+        raws = compare(f"beam_early_stop_{'on' if es else 'off'}", dec,
+                       lambda d, db: d.beam_batch_raw(db), same_raw)
+        out[f"beam_early_stop_{'on' if es else 'off'}"]["n_steps"] = [
+            r.n_steps for r in raws]
+        del dec
+    compare("greedy", BeamDecoder(model, DecodeConfig(**GRAPH_SAMPLE)),
+            lambda d, db: d.greedy_tokens(db), torch.equal)
+    compare("sample", BeamDecoder(model, DecodeConfig(**GRAPH_SAMPLE)),
+            lambda d, db: d.sample_tokens(db, fold=3), torch.equal)
+    dec = BeamDecoder(model, DecodeConfig())
+    compare("rank", dec, lambda d, db: d.rank_batch_raw(
+        db, cands, cand_bucket=N_OPTIONS)[0], torch.equal, [rank_db])
+    del dec
+    out["ok"] = all(v["bitwise"] for v in out.values())
+    return out
+
+
+def profiled_batches(torch, ak, fk, fn, rounds: int = 2) -> dict:
+    """Host wall per call of ``fn`` (warm, ``rounds`` calls, each ending
+    in a synchronize), then one more under torch.profiler: device busy,
+    idle share, device launches, and the hand-written kernels' launches
+    by name (those inside graph replays too), seen by the profiler and
+    counted by the kernels' counts over the same call."""
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    before = (ak.KERNEL.launches, fk.KERNEL.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = {"attention": ak.KERNEL.launches - before[0],
+               "ffn": fk.KERNEL.launches - before[1]}
+    groups, launches, _ = device_groups(torch, prof)
+    named = {"attention": 0, "ffn": 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = kernel_group(e.key)
+            if g in ("attention (csrc)", "ffn (csrc)"):
+                named[g.split()[0]] += e.count
+    wall = sum(walls) / len(walls)
+    busy = sum(groups.values())
+    measured = launches > 0
+    return dict(wall_ms=wall, walls_ms=walls,
+                device_busy_ms=busy if measured else "not measured",
+                idle_share=1 - busy / wall if measured else "not measured",
+                device_launches=launches if measured else "not measured",
+                kernel_launches_seen=named if measured else "not measured",
+                kernel_launches_counted=counted,
+                counts_match=named == counted)
+
+
+@contextlib.contextmanager
+def graph_runners():
+    """Every decoder's ``GraphRunner`` made inside the block (the CLIs'
+    and sessions' own), to read their counts after it."""
+    from mtn_tpu_torch.decode import graphs
+    made, init = [], graphs.GraphRunner.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+    graphs.GraphRunner.__init__ = recorded
+    try:
+        yield made
+    finally:
+        graphs.GraphRunner.__init__ = init
+
+
+def runner_counts(runners) -> dict:
+    """Batches, the distinct shapes among them, the program sets built
+    (captures), kept, and the batches run eagerly, over ``runners``."""
+    return dict(batches=sum(r.batches for r in runners),
+                shapes=sum(len(r.seen) for r in runners),
+                captures=sum(r.captures for r in runners),
+                sets=sum(len(r.sets) for r in runners),
+                eager=sum(r.eager for r in runners))
+
+
+@contextlib.contextmanager
+def eager_decoders():
+    """Every ``BeamDecoder`` runs its eager loops inside the block."""
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    graphed = BeamDecoder.graphed
+    BeamDecoder.graphed = lambda self, t: False
+    try:
+        yield
+    finally:
+        BeamDecoder.graphed = graphed
+
+
+def graphs_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
+    """``[graphs]``: the flagship (bf16 and f32, both kernels) on the
+    64-turn synthetic set, 32 turns a batch at one shape: every decode
+    mode bitwise equal through the eager loop and the captured programs
+    (:func:`graph_equality`); one beam batch eager and graphed under
+    torch.profiler (both kernels inside the replays, the profiler's
+    count of each equal to the kernels' own); the sweep of the chunk
+    length k: host wall per warm beam batch, device busy, idle share,
+    device launches, host reads and replays, capture seconds per program
+    and the bytes the program set holds (``memory_reserved`` after
+    ``empty_cache``, its capture against before it); then
+    ``cli.generate --uniform-shapes 0`` eager and graphed
+    (:func:`shape_traffic`)."""
+    import numpy as np
+    from mtn_tpu_torch.decode import graphs
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_model
+    hbs, cfg, sd = flagship_batches(corpus, 32)
+    rank_hb = flagship_batch(corpus, RANK_TURNS)[0]
+    rng = np.random.default_rng(2)
+    cands = [[rng.integers(4, cfg.vocab_size,
+                           int(rng.integers(3, 12))).tolist()
+              for _ in range(N_OPTIONS)] for _ in range(RANK_TURNS)]
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    out = {"chunk": graphs.CHUNK, "batches": len(hbs)}
+    for dtype in ("bfloat16", "float32"):
+        cfg.dtype = dtype
+        model = load_model(cfg, sd, "cuda")
+        dbs = [device_batch(hb, "cuda", dtype) for hb in hbs]
+        out[dtype] = graph_equality(torch, ak, fk, model, dbs,
+                                    device_batch(rank_hb, "cuda", dtype),
+                                    cands)
+        if dtype == "bfloat16":
+            out.update(graph_timing(torch, ak, fk, graphs, model, dbs))
+        del model, dbs
+        torch.cuda.empty_cache()
+    out["traffic"] = shape_traffic(torch, corpus, root)
+    seen = out["profile"]["graphed"]["kernel_launches_seen"]
+    out["kernels_in_replays"] = (isinstance(seen, dict)
+                                 and min(seen.values()) > 0)
+    profiled = [out["profile"]["eager"], out["profile"]["graphed"],
+                out["sweep_eager"], *out["sweep"]]
+    out["counts_match_profiler"] = all(p["counts_match"] for p in profiled)
+    out["ok"] = bool(out["bfloat16"]["ok"] and out["float32"]["ok"]
+                     and out["kernels_in_replays"]
+                     and out["counts_match_profiler"]
+                     and out["traffic"]["bitwise"])
+    return out
+
+
+def graph_timing(torch, ak, fk, graphs, model, dbs) -> dict:
+    """One warm beam batch eager and graphed under the profiler, and the
+    sweep of k over ``dbs`` (see :func:`graphs_phase`)."""
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    out = {}
+    # one warm batch, eager and graphed, under the profiler (the shape's
+    # first batch runs eagerly, its second captures)
+    dec = BeamDecoder(model, DecodeConfig(**GRAPH_DECODE))
+    twin = eager_twin(dec)
+    dec.beam_batch_raw(dbs[0])
+    dec.beam_batch_raw(dbs[0])
+    out["profile"] = {
+        "eager": profiled_batches(torch, ak, fk,
+                                  lambda: twin.beam_batch_raw(dbs[0])),
+        "graphed": profiled_batches(torch, ak, fk,
+                                    lambda: dec.beam_batch_raw(dbs[0]))}
+    # the sweep of k over both batches: wall per warm batch
+    sweep, chunk = [], graphs.CHUNK
+    try:
+        for k in GRAPH_CHUNKS:
+            dec.graphs = None
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            graphs.CHUNK = k
+            dec.graphs = graphs.GraphRunner()
+            dec.beam_batch_raw(dbs[0])          # the first batch: eager
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            allocated = torch.cuda.memory_allocated()
+            dec.beam_batch_raw(dbs[0])          # the second: captured
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            ps = next(iter(dec.graphs.sets.values()))
+            row = dict(k=k, capture_s=ps.capture_s(),
+                       pool_bytes=torch.cuda.memory_reserved() - reserved,
+                       live_bytes=torch.cuda.memory_allocated() - allocated)
+            ps.reads = ps.replays = 0
+            prof = profiled_batches(
+                torch, ak, fk, lambda: [dec.beam_batch_raw(db) for db in dbs])
+            row.update(prof, wall_ms_per_batch=prof["wall_ms"] / len(dbs),
+                       reads_per_batch=ps.reads / (3 * len(dbs)),
+                       replays_per_batch=ps.replays / (3 * len(dbs)))
+            sweep.append(row)
+            del ps   # the next k's bytes count its set alone
+    finally:
+        graphs.CHUNK = chunk
+    eager = profiled_batches(
+        torch, ak, fk, lambda: [twin.beam_batch_raw(db) for db in dbs])
+    eager["wall_ms_per_batch"] = eager["wall_ms"] / len(dbs)
+    out["sweep"] = sweep
+    out["sweep_eager"] = eager
+    return out
+
+
+def shape_traffic(torch, corpus: dict, root: str) -> dict:
+    """``cli.generate --uniform-shapes 0 --turn-batch 8`` on the 64-turn
+    set (each batch at its own lengths, rounded to their buckets), with
+    the decoders' eager loops and then graphed: the JSON bitwise equal,
+    responses/sec of each after loading (the stats file's decode
+    seconds), and the graphed run's batches, distinct shapes, captures
+    and eager batches."""
+    from mtn_tpu_torch.cli import generate
+    out = {}
+    for mode in ("eager", "graphed"):
+        path = os.path.join(root, f"traffic_{mode}.json")
+        stats_path = os.path.join(root, f"traffic_{mode}_stats.json")
+        argv = generate_argv(corpus, corpus["prefix"], path, *BEAM_FLAGS,
+                             "--uniform-shapes", "0", "--turn-batch", "8",
+                             "--stats-output", stats_path)
+        with graph_runners() as runners, (
+                eager_decoders() if mode == "eager"
+                else contextlib.nullcontext()):
+            rc = generate.main(argv)
+            torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"generate ({mode}) exited {rc}")
+        with open(stats_path) as f:
+            stats = json.load(f)
+        out[mode] = dict(responses_per_sec=stats["turns"] / stats["seconds"],
+                         seconds=stats["seconds"], batches=stats["batches"],
+                         runner=runner_counts(runners))
+        out[mode + "_answers"] = answers_of(path)
+    out["bitwise"] = out.pop("eager_answers") == out.pop("graphed_answers")
+    return out
 
 
 # -- sample, stream, rank, evaluate -------------------------------------------
@@ -934,8 +1269,10 @@ def rank_reference(torch, corpus: dict, cand_path: str) -> dict:
 def rank_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     """Candidates built by ``scripts/make_rank_candidates.py`` (100
     options per last turn); ``cli.rank --turn-batch 2`` (bf16, both
-    kernels: 200 rows a decode step), counted; its scores, ranks and the
-    retrieval block; then the f32 card-vs-CPU reference."""
+    kernels: 200 rows a decode step), counted, with its decoder's
+    batches, shapes and captures; its scores, ranks and the retrieval
+    block; the same command with the decoders' eager loops (scores
+    bitwise equal, options/sec); then the f32 card-vs-CPU reference."""
     from mtn_tpu_torch.cli import rank
     cand_path = os.path.join(root, "cands.json")
     subprocess.run([sys.executable, os.path.join(HERE, "scripts",
@@ -946,22 +1283,31 @@ def rank_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     out = os.path.join(root, "ranks.json")
     printed = io.StringIO()
 
-    def run():
-        with contextlib.redirect_stdout(printed):
+    def run(path=out, sink=printed):
+        with contextlib.redirect_stdout(sink):
             return rank.main([
                 "--model", corpus["prefix"] + "_best", "--test-path",
                 corpus["fea_path"], "--test-set", corpus["test_set"],
                 "--candidates", cand_path, "--undisclosed-only", "1",
                 "--turn-batch", str(RANK_TURNS), "--dtype", "bfloat16",
                 "--device", "cuda", "--use-pallas-attention", "1",
-                "--use-pallas-ffn", "1", "--output", out])
+                "--use-pallas-ffn", "1", "--output", path])
     t0 = time.time()
-    rc, launches, calls = run_path(torch, ak, fk, run)
+    with graph_runners() as runners:
+        rc, launches, calls = run_path(torch, ak, fk, run)
     wall = time.time() - t0
     if rc != 0:
         raise AssertionError(f"rank exited {rc}")
     with open(out) as f:
         result = json.load(f)
+    eager_out = os.path.join(root, "ranks_eager.json")
+    t0 = time.time()
+    with eager_decoders():
+        rc = run(eager_out, io.StringIO())
+        torch.cuda.synchronize()
+    eager_wall = time.time() - t0
+    with open(eager_out) as f:
+        eager_result = json.load(f)
     turns = [t for d in result["dialogs"] for t in d["dialog"]]
     block = [line for line in printed.getvalue().splitlines()
              if line.split(":")[0] in ("r@1", "r@5", "r@10", "mean_rank",
@@ -973,6 +1319,9 @@ def rank_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     return dict(launches=launches, calls_by_shape=calls, wall_s=wall,
                 turns=len(turns), options=N_OPTIONS,
                 options_per_sec=len(turns) * N_OPTIONS / wall,
+                runner=runner_counts(runners),
+                eager_options_per_sec=len(turns) * N_OPTIONS / eager_wall,
+                eager_bitwise=rc == 0 and eager_result == result,
                 metrics=result.get("metrics"), block=block, ok=ok,
                 reference=rank_reference(torch, corpus, cand_path))
 
@@ -1196,7 +1545,9 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     kernels, ``turn_batch`` 16), warmed up (``quant``: its weights):
     /v1/respond against the
     session's own respond_batch of the same request, bitwise; 32 requests
-    from 8 threads (requests/sec, /stats latency, batch launches);
+    from 8 threads (requests/sec, /stats latency, batch launches, the
+    decoder's batches, shapes, captures and eager batches; for bf16 the
+    same load again through the eager loops and then graphed and warm);
     /v1/rank with 100 candidates; a /v1/stream reassembled against the
     greedy decode of the same request; /admin/reload (the epoch, and the
     same answer after it); /metrics. Kernel launches are counted over the
@@ -1229,10 +1580,23 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
                 {"answer": a, "score": sc} for a, sc in want.nbest]}
 
         before = srv.async_server.launches
+        runner = session.decoder.graphs
+        start = runner_counts([runner])
         load = counted(lambda: concurrent_respond(base, bodies))
         stats = http(base, "/stats")[1]
+        end = runner_counts([runner])
         out.update(load, batch_launches=srv.async_server.launches - before,
-                   stats_latency=stats["latency"])
+                   stats_latency=stats["latency"],
+                   runner_in_load={k: end[k] - start[k] for k in end})
+        if not quant:
+            # the same load through the decoder's eager loops, then
+            # graphed again with the sets the first load built
+            session.decoder.graphed = lambda t: False
+            try:
+                out["eager_load"] = concurrent_respond(base, bodies)
+            finally:
+                del session.decoder.graphed
+            out["warm_load"] = concurrent_respond(base, bodies)
 
         code, ranked = counted(lambda: http(base, "/v1/rank", dict(
             bodies[1], candidates=rank_candidates(corpus))))
@@ -1578,11 +1942,14 @@ def aot_fitted(session, live, reqs, rows: int):
         fts=[f for f, _ in fit], fts_len=[n for _, n in fit]))
 
 
-def aot_live_nbest(live, dbs):
-    """The live decoder's n-best texts and its decode steps over ``dbs``."""
+def aot_live_nbest(live, dbs, eager: bool = False):
+    """The live decoder's n-best texts and its decode steps over ``dbs``;
+    ``eager``: through its eager loop, which steps as the artifact's
+    session does (one program call a step), not its captured programs."""
     out, steps = [], 0
     for db in dbs:
-        raw = live.decoder.beam_batch_raw(db)
+        raw = (live.decoder.beam_eager(db) if eager
+               else live.decoder.beam_batch_raw(db))
         steps += raw.n_steps
         out += [r.texts(live.vlist)
                 for r in live.decoder.beam_results(raw, db.valid)]
@@ -1683,7 +2050,7 @@ def aot_int8(torch, ak, fk, corpus, root, reqs, lengths) -> dict:
                                     lambda: session.respond_batch(chunk))
     db = aot_fitted(session, live, chunk, SERVE_TURN_BATCH)
     (want, _), live_launches, _ = run_path(
-        torch, ak, fk, lambda: aot_live_nbest(live, [db]))
+        torch, ak, fk, lambda: aot_live_nbest(live, [db], eager=True))
     out = dict(blocks=AOT_INT8_BLOCKS, weights_quant="int8-fp-head",
                export_s=export_s, bytes=meta["blob_bytes"], load_s=load_s,
                resident_bytes=resident, launches=aot_launches,
@@ -1757,18 +2124,20 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
                live_resident_bytes=live_resident, warmup_s=warmup_s,
                torch_version=meta["torch_version"])
 
-    # 32 requests in 16-row chunks: artifact, live, live, artifact
+    # 32 requests in 16-row chunks: artifact, live (its eager loop, which
+    # steps as the artifact does), live graphed, then the same reversed
+    # (the graphed times are warm, the capture falls in the first run)
     dbs = [aot_fitted(session, live, reqs[i:i + SERVE_TURN_BATCH],
                       SERVE_TURN_BATCH)
            for i in range(0, SERVE_REQUESTS, SERVE_TURN_BATCH)]
-    walls = {"aot": [], "live": []}
+    walls = {"aot": [], "live": [], "live_graphed": []}
 
     def timed_run(kind):
         t0 = time.perf_counter()
         if kind == "aot":
             res = [r.nbest for r in session.respond_batch(reqs)]
         else:
-            res = aot_live_nbest(live, dbs)
+            res = aot_live_nbest(live, dbs, eager=kind == "live")
         torch.cuda.synchronize()
         walls[kind].append(time.perf_counter() - t0)
         return res
@@ -1776,10 +2145,15 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
         torch, ak, fk, lambda: timed_run("aot"))
     (want, steps), live_launches, _ = run_path(
         torch, ak, fk, lambda: timed_run("live"))
+    graphed = [timed_run("live_graphed")[0]]   # eager, then captured
+    walls["live_graphed"].clear()
+    graphed.append(timed_run("live_graphed")[0])
     timed_run("live")
     timed_run("aot")
     host_ms = {k: 1e3 * sum(v) / len(v) / steps for k, v in walls.items()}
-    out.update(bitwise_live=got == want, steps=steps,
+    out.update(bitwise_live=got == want,
+               graphed_bitwise_live=all(g == want for g in graphed),
+               steps=steps,
                launches=aot_launches, live_launches=live_launches,
                calls_by_shape=aot_calls, host_ms_per_step=host_ms,
                wall_s=walls)
@@ -1838,6 +2212,7 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     h = out["http"]
     out["ok"] = bool(
         out["bitwise_live"] and aot_launches == live_launches
+        and out["graphed_bitwise_live"]
         and min(aot_launches.values()) > 0 and h["bitwise_live"]
         and h["aot"] is True and min(h["launches"].values()) > 0
         and h["rank_ok"] and h["stream_equals_session"]
@@ -2301,28 +2676,43 @@ def train_reference(torch, ak, fk, corpus: dict, prefix: str) -> dict:
 def record_launches(ak, fk, fn):
     """Run ``fn`` with each kernel's launch recorded: per distinct set of
     argument shapes, a copy of the first call's arguments and the number
-    of calls."""
+    of calls. A launch inside a CUDA graph is recorded at each replay of
+    the graph (``_build.REPLAY_LISTENERS``), with the argument shapes (and
+    the values of the other arguments) in place of the arguments; a
+    capture itself launches nothing and is not recorded."""
+    from mtn_tpu_torch.ops import _build
+    import torch
     seen = {}
     origs = (ak.launch, fk.launch)
 
+    def record(key, args, n):
+        if key not in seen:
+            seen[key] = {"args": args, "calls": 0}
+        seen[key]["calls"] += n
+
     def recorder(name, orig):
         def launch(*args):
-            key = (name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
-                                  else None for a in args)
-            if key not in seen:
-                seen[key] = {"args": [a.detach().clone()
-                                      if hasattr(a, "detach") else a
-                                      for a in args],
-                             "calls": 0}
-            seen[key]["calls"] += 1
+            if not torch.cuda.is_current_stream_capturing():
+                record((name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
+                                       else None for a in args),
+                       [a.detach().clone() if hasattr(a, "detach") else a
+                        for a in args], 1)
             return orig(*args)
         return launch
+
+    def replayed(calls):
+        for (kernel, shapes), n in calls.items():
+            record((kernel.name,) + tuple(
+                s if isinstance(s, tuple) else None for s in shapes),
+                list(shapes), n)
     ak.launch = recorder("attention", origs[0])
     fk.launch = recorder("ffn", origs[1])
+    _build.REPLAY_LISTENERS.append(replayed)
     try:
         fn()
     finally:
         ak.launch, fk.launch = origs
+        _build.REPLAY_LISTENERS.remove(replayed)
     return seen
 
 
@@ -2528,10 +2918,10 @@ def launch_shapes(seen) -> dict:
 
 
 def traced_beam(dec, db):
-    """``dec.beam_batch(db)`` with every step of its loop kept on the
-    host: the carry going in, the step's log-probs and the carry coming
-    out. The decoder's own loop runs; ``decode.beam.beam_step`` is
-    wrapped for the call."""
+    """``dec.beam_batch(db)`` through the eager loop with every step kept
+    on the host: the carry going in, the step's log-probs and the carry
+    coming out. The decoder's own eager loop runs (a rank under a mesh
+    runs no other); ``decode.beam.beam_step`` is wrapped for the call."""
     import mtn_tpu_torch.decode.beam as beam_mod
     orig, steps = beam_mod.beam_step, []
 
@@ -2550,7 +2940,8 @@ def traced_beam(dec, db):
         return out
     beam_mod.beam_step = kept_step
     try:
-        res = dec.beam_batch(db)
+        res = dec.beam_results(dec.beam_eager(db),
+                               dec.gather_rows(db.valid))
     finally:
         beam_mod.beam_step = orig
     return [[r.tokens, r.scores] for r in res], steps
@@ -3065,9 +3456,10 @@ def main() -> int:
         ak.KERNEL.launches = 0
         fk.KERNEL.launches = 0
         t0 = time.time()
-        rc = generate.main(generate_argv(corpus, prefix, out, *BEAM_FLAGS,
-                                         "--stats-output", stats_path))
-        torch.cuda.synchronize()
+        with graph_runners() as runners:
+            rc = generate.main(generate_argv(corpus, prefix, out, *BEAM_FLAGS,
+                                             "--stats-output", stats_path))
+            torch.cuda.synchronize()
         launches = {"attention": ak.KERNEL.launches,
                     "ffn": fk.KERNEL.launches}
         wall = time.time() - t0
@@ -3080,8 +3472,33 @@ def main() -> int:
         answers = [qa["answer"] for d in result["dialogs"]
                    for qa in d["dialog"]]
         print(f"[main] {json.dumps(stats)}")
+        # one shape: the first batch runs eagerly, the second captures
+        # (after one eager prefix and step) and replays; k = graphs.CHUNK
+        # steps a chunk
+        from mtn_tpu_torch.decode import graphs
+        k, layers = graphs.CHUNK, FLAGSHIP["nb_blocks"]
+        steps = round(stats["mean_exit_step"] * stats["batches"])
+        counts = runner_counts(runners)
         print(f"[main] launches {json.dumps(launches)}; main() wall "
-              f"{wall:.2f}s incl. loading")
+              f"{wall:.2f}s incl. loading; decoder {json.dumps(counts)}; "
+              f"graphed with k = {k}: FFN launches = {layers} x (sum over "
+              f"batches of n_steps, rounded up to k on graphed batches, "
+              f"plus a warm-up step a capture), attention 24 x (batches "
+              f"+ a warm-up prefix a capture)")
+        captures = counts["captures"]
+        if k == 1 and launches != {
+                "attention": 24 * (stats["batches"] + captures),
+                "ffn": layers * (steps + captures)}:
+            return fail(f"[main] launches {launches} are not those of "
+                        f"{stats['batches']} batches of {steps} steps in "
+                        f"all with {captures} captures")
+        warm = stats["seconds"] - stats["first_batch_seconds"]
+        if stats["batches"] > 1:
+            print(f"[main] after the first batch (run eagerly; the "
+                  f"second holds the capture): "
+                  f"{(stats['turns'] - 32) / warm:.2f} responses/sec "
+                  f"({warm * 1e3 / (stats['batches'] - 1):.2f} ms a "
+                  f"batch); {card}")
         if len(answers) != N_DIALOGS or \
                 any(a == "__UNDISCLOSED__" for a in answers):
             return fail("not every undisclosed answer was replaced")
@@ -3101,6 +3518,24 @@ def main() -> int:
         print(f"[profile] one warm turn batch (32 turns, beam 5, bf16): "
               f"{json.dumps(prof)}")
         phase_s["main"] = time.time() - t_phase
+
+        # each decode batch as captured programs, against the eager loop
+        t_phase = time.time()
+        gph = graphs_phase(torch, ak, fk, corpus, root)
+        for key in ("bfloat16", "float32", "profile", "traffic"):
+            print(f"[graphs] {key} {json.dumps(gph[key])}")
+        for row in gph["sweep"] + [dict(gph["sweep_eager"], k="eager")]:
+            print(f"[graphs] sweep {json.dumps(row)}")
+        print(f"[graphs] chunk k = {gph['chunk']}, {gph['batches']} batches "
+              f"of 32 turns, beam 5; both kernels inside the replays: "
+              f"{gph['kernels_in_replays']}; the kernels' counts equal "
+              f"the profiler's in every profiled call: "
+              f"{gph['counts_match_profiler']}; {card}")
+        if not gph["ok"]:
+            return fail("graphs: a captured decode differs from the eager "
+                        "loop, a kernel did not run inside a replay, or "
+                        "the kernels' counts differ from the profiler's")
+        phase_s["graphs"] = time.time() - t_phase
 
         # the (data, model) mesh: NCCL world of one, two gloo ranks
         t_phase = time.time()
@@ -3137,6 +3572,9 @@ def main() -> int:
         if not ranked["ok"]:
             return fail("rank: scores, ranks or the retrieval block are "
                         "missing or not finite")
+        if not ranked["eager_bitwise"]:
+            return fail("rank: the eager loops' result differs from the "
+                        "captured programs'")
         if min(ranked["launches"].values()) <= 0:
             return fail("a kernel never launched on the rank path: "
                         f"{ranked['launches']}")

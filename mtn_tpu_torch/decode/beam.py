@@ -16,10 +16,21 @@ Same search law as the JAX decoder:
 
 Ties: ``lax.top_k`` puts the lower index first, and both top-k stages and
 the completion pool rely on it. ``torch.topk`` promises no tie order, so
-:func:`top_k` takes a stable descending sort. The early-stop test runs
-on the host here: one device-to-host sync per step. Each loop's body is
-a function of :mod:`mtn_tpu_torch.decode.steps` at a 0-d tensor
-position, the function that :mod:`mtn_tpu_torch.utils.aot` exports.
+:func:`top_k` takes a stable descending sort. Each loop's body is a
+function of :mod:`mtn_tpu_torch.decode.steps` at a 0-d tensor position,
+the function that :mod:`mtn_tpu_torch.utils.aot` exports.
+
+Two ways to run a batch. On a CUDA device without a mesh, beam, greedy,
+sample and rank batches run as captured device programs
+(:mod:`mtn_tpu_torch.decode.graphs`, the counterpart of JAX's jitted
+decoders), with the early-stop test on the device and read once every
+few steps; a shape's first batch, and a shape the runner's cache does
+not admit, runs the eager loop. Everywhere else (the CPU, a mesh, whose
+collectives go over gloo and cannot be captured) the eager loops run
+(:meth:`BeamDecoder.beam_eager`, :meth:`~BeamDecoder.tokens_eager`,
+:meth:`~BeamDecoder.rank_eager`), their early-stop test on the host:
+one device-to-host sync per step. The two give bitwise equal results;
+streaming is always eager (each step goes to the host anyway).
 
 Sampling transforms the step's log-probs exactly as JAX's
 ``_sample_transform`` does (temperature, top-k, top-p, in f32) and draws
@@ -59,7 +70,9 @@ from mtn_tpu_torch.decode.steps import (NEG_INF, BeamResult,  # noqa: F401
                                         cut_rows, detokenize, draw_seed,
                                         gumbel_argmax, gumbel_uniforms,
                                         rank_inputs, rank_step,
-                                        sample_transform, token_step, top_k)
+                                        sample_transform, token_init,
+                                        token_step, top_k)
+from mtn_tpu_torch.decode.graphs import GraphRunner
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
 from mtn_tpu_torch.parallel.collectives import gather_rows
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
@@ -88,6 +101,14 @@ class BeamDecoder:
         self.cfg = decode_cfg
         self.pad, self.sos, self.eos, self.unk = pad, sos, eos, unk
         self.data = shardings.data if shardings is not None else None
+        self.model_axis = shardings.model if shardings is not None else None
+        self.graphs = GraphRunner()
+
+    def graphed(self, t: torch.Tensor) -> bool:
+        """Whether a decode of tensors like ``t`` runs as captured
+        programs: on a CUDA device, without a mesh axis (a mesh's
+        collectives go over gloo, which a graph cannot hold)."""
+        return t.is_cuda and self.data is None and self.model_axis is None
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The rows of every data rank (``t`` itself without a data
@@ -126,22 +147,53 @@ class BeamDecoder:
                 self.model.init_self_kv(batch.query.shape[0],
                                         self.cfg.maxlen, batch.query.device))
 
-    # ------------------------------------------------------------------
-    @torch.inference_mode()
-    def beam_batch_raw(self, batch: DeviceBatch) -> BeamRaw:
+    def beam_prefix(self, batch: DeviceBatch):
+        """(state, carry) before a beam loop's step 0: the state tiled
+        over the beam (row b*beam+k is turn b), and :func:`beam_init`'s
+        carry followed by the zeroed KV caches."""
         cfg = self.cfg
         dev = batch.query.device
         B = batch.query.shape[0]
-        # tile every per-turn tensor over the beam: row b*beam+k = turn b
         state = self._decode_state(batch).map(
             lambda x: x.repeat_interleave(cfg.beam, dim=0))
         self_kv = self.model.init_self_kv(B * cfg.beam, cfg.maxlen, dev)
-        carry = beam_init(B, cfg, dev, self.pad, self.sos)
+        return state, (*beam_init(B, cfg, dev, self.pad, self.sos), self_kv)
+
+    def rank_prefix(self, batch: DeviceBatch, cand: torch.Tensor,
+                    cand_len: torch.Tensor):
+        """(state, self_kv, rows, inputs, lens, total) before the rank
+        loop over (B, N, L) candidates: the state tiled over the N
+        candidates (row b*N+n is turn b), the zeroed KV caches, the
+        targets and ``<sos> + cand[:, :-1]`` (:func:`rank_inputs`), the
+        lengths by row and the zeroed f32 sums."""
+        B, N, L = cand.shape
+        state = self._decode_state(batch).map(
+            lambda x: x.repeat_interleave(N, dim=0))
+        self_kv = self.model.init_self_kv(B * N, L, cand.device)
+        rows, inputs = rank_inputs(cand, self.sos)
+        total = torch.zeros(B * N, dtype=torch.float32, device=cand.device)
+        return state, self_kv, rows, inputs, cand_len.reshape(B * N), total
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def beam_batch_raw(self, batch: DeviceBatch) -> BeamRaw:
+        """One beam-decoded batch on the device: captured programs where
+        :meth:`graphed`, else :meth:`beam_eager`."""
+        if self.graphed(batch.query):
+            return self.graphs.beam(self, batch)
+        return self.beam_eager(batch)
+
+    @torch.inference_mode()
+    def beam_eager(self, batch: DeviceBatch) -> BeamRaw:
+        """The eager beam loop, its early-stop test on the host."""
+        cfg = self.cfg
+        state, (*carry, self_kv) = self.beam_prefix(batch)
         step = self._stepper(state)
-        pos = self._positions(cfg.maxlen, dev)
+        pos = self._positions(cfg.maxlen, batch.query.device)
         n_steps = 0
         for l in range(cfg.maxlen):
-            if cfg.early_stop and not beam_open(carry[1], carry[2], l, cfg):
+            if cfg.early_stop and not beam_open(carry[1], carry[2], pos[l],
+                                                cfg):
                 break
             *carry, self_kv = beam_step(step, pos[l], *carry, self_kv, cfg,
                                         self.eos, self.unk)
@@ -181,10 +233,19 @@ class BeamDecoder:
     @torch.inference_mode()
     def _token_loop(self, batch: DeviceBatch, style: str,
                     fold: int) -> torch.Tensor:
-        """(B, maxlen+1) tokens with the <sos> prefix, one
-        :func:`token_step` per position, gathered over the data ranks;
-        with early_stop the loop ends once every row has emitted <eos>
-        (tokens after a row's first <eos> are never read)."""
+        """(B, maxlen+1) tokens with the <sos> prefix: captured programs
+        where :meth:`graphed`, else :meth:`tokens_eager`."""
+        if self.graphed(batch.query):
+            return self.graphs.tokens(self, batch, style, fold)
+        return self.tokens_eager(batch, style, fold)
+
+    @torch.inference_mode()
+    def tokens_eager(self, batch: DeviceBatch, style: str,
+                     fold: int) -> torch.Tensor:
+        """The eager token loop: (B, maxlen+1) tokens with the <sos>
+        prefix, one :func:`token_step` per position, gathered over the
+        data ranks; with early_stop the loop ends once every row has
+        emitted <eos> (tokens after a row's first <eos> are never read)."""
         maxlen = self.cfg.maxlen
         dev = batch.query.device
         B = batch.query.shape[0]
@@ -192,9 +253,7 @@ class BeamDecoder:
         step = self._stepper(state)
         uniforms = self._uniforms(style, fold, B, dev)
         pos = self._positions(maxlen, dev)
-        toks = torch.full((B, maxlen + 1), self.pad, dtype=torch.int64,
-                          device=dev)
-        toks[:, 0] = self.sos
+        toks = token_init(B, maxlen, dev, self.pad, self.sos)
         for l in range(maxlen):
             if self.cfg.early_stop and all_ended(toks, self.eos):
                 break
@@ -260,19 +319,24 @@ class BeamDecoder:
     @torch.inference_mode()
     def _rank(self, batch: DeviceBatch, cand: torch.Tensor,
               cand_len: torch.Tensor) -> torch.Tensor:
+        """(B, N) log-likelihoods of the candidates: captured programs
+        where :meth:`graphed`, else :meth:`rank_eager`."""
+        if self.graphed(cand):
+            return self.graphs.rank(self, batch, cand, cand_len)
+        return self.rank_eager(batch, cand, cand_len)
+
+    @torch.inference_mode()
+    def rank_eager(self, batch: DeviceBatch, cand: torch.Tensor,
+                   cand_len: torch.Tensor) -> torch.Tensor:
         """Teacher-forced log-likelihood of (B, N, L) candidates: the
         per-turn state tiled over the N candidates (row b*N+n is turn b),
         ``<sos> + cand[:, :-1]`` fed through the cached decode step, and
         log P(target) summed in f32 over positions l < length."""
         B, N, L = cand.shape
-        state = self._decode_state(batch).map(
-            lambda x: x.repeat_interleave(N, dim=0))
-        self_kv = self.model.init_self_kv(B * N, L, cand.device)
+        state, self_kv, rows, inputs, lens, total = self.rank_prefix(
+            batch, cand, cand_len)
         step = self._stepper(state)
-        rows, inputs = rank_inputs(cand, self.sos)
-        lens = cand_len.reshape(B * N)
         pos = self._positions(L, cand.device)
-        total = torch.zeros(B * N, dtype=torch.float32, device=cand.device)
         for l in range(L):
             total = rank_step(step, pos[l], rows, inputs, lens, total,
                               self_kv)

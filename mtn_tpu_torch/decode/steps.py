@@ -8,10 +8,13 @@ carried value as a tensor, and reaches the model only through the
 :class:`~mtn_tpu_torch.decode.beam.BeamDecoder`'s live loops call these
 functions, and :mod:`mtn_tpu_torch.utils.aot` exports the same
 functions with ``torch.export``, so an artifact cannot drift from the
-live path. What stays on the host is the loops themselves and their
-early-stop tests (:func:`beam_open`, :func:`all_ended`): one
-device-to-host read per step, as ``mtn_tpu`` has none (its loop is a
-``lax.while_loop``), the one place the two packages' loops differ.
+live path. The early-stop tests come in two forms: as 0-d bool tensors
+on the device (:func:`beam_open_t`, :func:`all_ended_t`), which the
+masked steps (:func:`beam_step_masked`, :func:`token_step_at`) carry
+as JAX's ``lax.while_loop`` carries its condition, so that
+:mod:`mtn_tpu_torch.decode.graphs` runs many steps between two host
+reads; and as host booleans (:func:`beam_open`, :func:`all_ended`), one
+device-to-host read per step, for the loops that stay eager.
 
 Sampling is split the same way: :func:`gumbel_uniforms` draws the
 step's uniforms from a generator seeded with :func:`draw_seed` (on the
@@ -192,16 +195,30 @@ def beam_init(B: int, cfg: DecodeConfig, device, pad: int = SPECIALS[
     return tok_buf, scores, comp_scores, comp_buf, comp_len
 
 
-def beam_open(scores: torch.Tensor, comp_scores: torch.Tensor, l: int,
-              cfg: DecodeConfig) -> bool:
+def beam_open_t(scores: torch.Tensor, comp_scores: torch.Tensor,
+                l: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
     """Whether a live hypothesis can still enter some row's n-best at
-    step ``l`` (the early-stop test; one device-to-host read). A
-    completion recorded during step l' scores at most score_active +
-    penalty·(l'+1), and active scores only decay."""
-    future = (cfg.penalty * cfg.maxlen if cfg.penalty >= 0.0
-              else cfg.penalty * (l + 1.0))
+    step ``l`` (a 0-d int64 tensor), as a 0-d bool tensor on the scores'
+    device. A completion recorded during step l' scores at most
+    score_active + penalty·(l'+1), and active scores only decay: the
+    bound adds ``penalty·maxlen`` if ``penalty >= 0``, else
+    ``penalty·(l+1)``, each in double and rounded to f32 once, as a
+    Python scalar is."""
+    if cfg.penalty >= 0.0:
+        future = cfg.penalty * cfg.maxlen
+    else:
+        future = ((l + 1).to(torch.float64) * cfg.penalty).to(torch.float32)
     bound = scores.max(dim=1).values + future
-    return bool((bound >= comp_scores[:, -1]).any())
+    return (bound >= comp_scores[:, -1]).any()
+
+
+def beam_open(scores: torch.Tensor, comp_scores: torch.Tensor, l,
+              cfg: DecodeConfig) -> bool:
+    """:func:`beam_open_t` read to the host (one device-to-host read);
+    ``l`` an ``int`` or a 0-d int64 tensor."""
+    if not torch.is_tensor(l) and cfg.penalty < 0.0:
+        l = torch.tensor(l, dtype=torch.int64, device=scores.device)
+    return bool(beam_open_t(scores, comp_scores, l, cfg))
 
 
 def beam_step(step: Step, l: torch.Tensor, tok_buf, scores, comp_scores,
@@ -249,11 +266,52 @@ def beam_step(step: Step, l: torch.Tensor, tok_buf, scores, comp_scores,
     return tok_buf, scores, comp_scores, comp_buf, comp_len, self_kv
 
 
+def beam_step_masked(step: Step, l: torch.Tensor, tok_buf, scores,
+                     comp_scores, comp_buf, comp_len, self_kv,
+                     alive: torch.Tensor, n_steps: torch.Tensor,
+                     cfg: DecodeConfig, eos: int = SPECIALS["<eos>"],
+                     unk: int = SPECIALS["<unk>"]):
+    """One step of the early-stopped beam loop with its exit on the
+    device, the body of JAX's ``lax.while_loop``: ``alive`` (a 0-d bool
+    tensor, or ``True``) becomes ``alive & beam_open_t(l)`` before the
+    step, the completion pool takes the step's values only where
+    ``alive`` holds, and
+    ``n_steps`` (0-d int64) counts the steps run while alive. Once the
+    test has failed, the pool stays bitwise what it was at the exit,
+    whatever the steps after it compute, and ``n_steps`` is the step
+    count of JAX's loop. Returns :func:`beam_step`'s tuple, then
+    ``alive`` and ``n_steps``."""
+    alive = alive & beam_open_t(scores, comp_scores, l, cfg)
+    tok_buf, scores, new_sc, new_buf, new_len, self_kv = beam_step(
+        step, l, tok_buf, scores, comp_scores, comp_buf, comp_len, self_kv,
+        cfg, eos, unk)
+    return (tok_buf, scores, torch.where(alive, new_sc, comp_scores),
+            torch.where(alive, new_buf, comp_buf),
+            torch.where(alive, new_len, comp_len), self_kv, alive,
+            n_steps + alive)
+
+
 # -- greedy, sample, stream ----------------------------------------------------
-def all_ended(toks: torch.Tensor, eos: int = SPECIALS["<eos>"]) -> bool:
+def token_init(B: int, maxlen: int, device, pad: int = SPECIALS["<blank>"],
+               sos: int = SPECIALS["<sos>"]) -> torch.Tensor:
+    """The token loops' (B, maxlen+1) buffer before step 0: ``<sos>``,
+    then ``pad``."""
+    toks = torch.full((B, maxlen + 1), pad, dtype=torch.int64,
+                      device=device)
+    toks[:, 0] = sos
+    return toks
+
+
+def all_ended_t(toks: torch.Tensor,
+                eos: int = SPECIALS["<eos>"]) -> torch.Tensor:
     """Whether every row of (B, maxlen+1) ``toks`` has emitted <eos> (the
-    token loops' early-stop test; one device-to-host read)."""
-    return bool((toks[:, 1:] == eos).any(dim=1).all())
+    token loops' early-stop test), as a 0-d bool tensor."""
+    return (toks[:, 1:] == eos).any(dim=1).all()
+
+
+def all_ended(toks: torch.Tensor, eos: int = SPECIALS["<eos>"]) -> bool:
+    """:func:`all_ended_t` read to the host (one device-to-host read)."""
+    return bool(all_ended_t(toks, eos))
 
 
 def token_step(step: Step, l: torch.Tensor, cur: torch.Tensor, self_kv,
@@ -266,6 +324,28 @@ def token_step(step: Step, l: torch.Tensor, cur: torch.Tensor, self_kv,
     if u is None:
         return torch.argmax(logp, dim=-1)
     return gumbel_pick(sample_transform(logp, cfg), u)
+
+
+def token_step_at(step: Step, l: torch.Tensor, toks: torch.Tensor, self_kv,
+                  u=None, cfg: DecodeConfig = None,
+                  alive: torch.Tensor = None, pad: int = SPECIALS["<blank>"],
+                  eos: int = SPECIALS["<eos>"]):
+    """One position of the greedy or sampled loop on its (B, maxlen+1)
+    token buffer: :func:`token_step` after ``toks[:, l]``, written in
+    place at ``l + 1``. With ``alive`` (a 0-d bool tensor, or ``True``)
+    the exit is on the device, as in JAX's ``lax.while_loop``: ``alive``
+    becomes ``alive & ~all_ended_t(toks)`` before the step, and the step
+    writes ``pad`` where it is false, which is what the eager loop leaves
+    there. Returns ``(toks, alive)``."""
+    pos = l.reshape(1)
+    if alive is not None:
+        alive = alive & ~all_ended_t(toks, eos)
+    nxt = token_step(step, l, toks.index_select(1, pos)[:, 0], self_kv, u,
+                     cfg)
+    if alive is not None:
+        nxt = torch.where(alive, nxt, pad)
+    toks.index_copy_(1, pos + 1, nxt[:, None])
+    return toks, alive
 
 
 # -- rank ----------------------------------------------------------------------

@@ -14,6 +14,8 @@ of the kernels run.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -121,15 +123,55 @@ class Library:
             return self._lib
 
 
+_RECORDING = threading.local()
+# called with a graph's record (:func:`recording`) at each of its replays
+REPLAY_LISTENERS: List[Callable[[Dict], None]] = []
+
+
 class Kernel(Library):
     """One CUDA kernel's source, its library and its launch count.
 
-    ``launches`` is incremented by the kernel's Python wrapper each time it
-    launches the kernel, and nowhere else."""
+    ``launches`` counts the kernel's launches: its Python wrapper calls
+    :meth:`count` each time it launches the kernel, and nowhere else, and
+    each replay of a CUDA graph that holds the kernel adds the graph's
+    launches of it (:func:`replayed`)."""
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
         super().__init__(name, bind, ".cu", nvcc_path, NVCC_FLAGS)
         self.launches = 0
+
+    def count(self, args: tuple) -> None:
+        """One launch by the wrapper, with arguments ``args``. While this
+        thread records a CUDA graph's capture (:func:`recording`), the
+        launch is a node of the graph that runs at each replay: it goes to
+        the capture's record, by argument shapes, and not to
+        ``launches``."""
+        record = getattr(_RECORDING, "calls", None)
+        if record is None:
+            self.launches += 1
+        else:
+            record[(self, tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                                for a in args))] += 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict]:
+    """The kernel launches of this thread inside the block, as ``{(kernel,
+    argument shapes): calls}`` (a CUDA graph's capture, whose launches
+    happen at its replays), kept out of the kernels' counts."""
+    _RECORDING.calls = calls = collections.Counter()
+    try:
+        yield calls
+    finally:
+        _RECORDING.calls = None
+
+
+def replayed(calls: Dict) -> None:
+    """Count one replay of a graph whose capture recorded ``calls``."""
+    for (kernel, _), n in calls.items():
+        kernel.launches += n
+    for listener in list(REPLAY_LISTENERS):
+        listener(calls)
 
 
 def host_library(name: str, bind: Callable[[ctypes.CDLL], None]

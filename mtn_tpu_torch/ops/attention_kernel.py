@@ -211,7 +211,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, H, Lq, Lk, D, *strides, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_cuda(rc, "attention kernel launch")
-    KERNEL.launches += 1
+    KERNEL.count((q, k, v, mask))
     return out
 
 
