@@ -125,21 +125,40 @@
    gradients through its autograd wrapper (kernel forward, plain
    backward) against its plain version's, at the shapes of a batch-8
    train step;
-8. ``[train]``: drives run.sh stage 2, ``python -m mtn_tpu_torch.cli.train``,
+8. ``[train-graphs]``: each train, accumulation and eval step of the
+   seeded flagship as one captured CUDA graph
+   (``mtn_tpu_torch/train/graphs.py``) against an eager twin from the
+   same state, over four steps (the shape's first eager, then the
+   capture, then replays): run (b)'s train step (batch 8, dropout 0,
+   both kernels) in bf16 and f32, run (a)'s (batch 32, dropout and
+   attention dropout 0.1, remat), an update from two 4-row microbatches
+   with --grad-clip and remat (the kernels also launched by the
+   recomputation), and an eval step; each step's metrics, dropout
+   masks and kernel launches bitwise, then the masters, Adam's moments,
+   its device count and the counts; run (a) also saved as an async step
+   checkpoint after those steps, resumed in a new graphed trainer and
+   stepped on beside the uninterrupted one, bitwise; the capture's
+   seconds and pool bytes; host wall per warm step, device busy and idle, launches and
+   tokens/sec of both, under the profiler the kernels' counts equal to
+   the profiler's;
+   ``[train]``: drives run.sh stage 2, ``python -m mtn_tpu_torch.cli.train``,
    at the flagship width on synthetic train and valid sets (vocab 6000),
-   two epochs each: (a) run.sh's settings (dropout 0.1, batch 32, remat,
-   cut_a), where the kernels run only in validation, as in JAX; (b)
-   dropout 0 and batch 8, where both kernels also run inside the train
-   steps; checks that the loss falls and the checkpoint meta has a best
-   epoch; then decodes (a)'s best checkpoint with ``cli.generate``;
+   two epochs each, its steps graphed: (a) run.sh's settings (dropout
+   0.1, batch 32, remat, cut_a), where the kernels run only in
+   validation, as in JAX; (b) dropout 0 and batch 8, where both kernels
+   also run inside the train steps; checks that the loss falls and the
+   checkpoint meta has a best epoch, and reports the trainer's step
+   programs (steps, distinct train shapes, captures, eager steps); then
+   decodes (a)'s best checkpoint with ``cli.generate``;
 9. ``[train-reference]``: one f32 train step of the trained flagship
    model on the card (kernels) against the CPU (plain versions): the loss
    within 1e-5 and every gradient within a relative L2 difference of
    1e-3, beside the same step on the card with the kernels off;
 10. ``[train-profile]``: a warm bf16 train step of run (b)'s
-    configuration, with both kernels and with both off, under
-    torch.profiler (host wall time, tokens/sec, device busy and idle,
-    launches per step, device time by kernel group, top host ops), and
+    configuration, eager with both kernels and with both off, beside
+    ``[train-graphs]`` b_bf16's graphed step, under torch.profiler (host wall time, tokens/sec, device
+    busy and idle, launches per step, device time by kernel group, the
+    kernels' counts equal to the profiler's, top host ops), and
     ``[train-kernel]`` lines: each kernel's device µs per call at every
     shape that step launched it at, beside the plain version's and SDPA's,
     and forward plus backward per call through the wrapper (nested
@@ -157,15 +176,27 @@
     (``features.native_in_use()`` must be true) and through the feature
     cache (fill, then hits) in f32, bf16 and int8, all bitwise equal on
     the card, with host ms per batch by route;
-13. ``[tools]``: ``cli.train`` at 2 blocks and full widths with
-    ``--profile-dir --nan-checks 1 --async-save 1 --feature-cache``
-    against a blocking-save run (bitwise equal checkpoints, the trace
-    written), then ``python -m mtn_tpu_torch.utils.average`` on the card
-    (its mean bitwise the CPU's) and ``cli.generate`` on the averaged
-    family.
+13. ``[tools]``: ``cli.train`` at 2 blocks and full widths, graphed,
+    with ``--profile-dir --async-save 1 --feature-cache`` against an
+    eager run under ``--nan-checks 1`` with blocking saves (bitwise equal
+    checkpoints, the trace written, the graphed run's captures), then
+    ``python -m mtn_tpu_torch.utils.average`` on the card (its mean
+    bitwise the CPU's) and ``cli.generate`` on the averaged family.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it. Its last line is ``{"ok": true, "device": ...}``.
+
+    python3 chip_smoke.py --train-traffic
+
+builds the kernels, then measures the trainer's step programs on lengths
+that vary as DSTC7-AVSD's do (``[train-traffic]``): the step shapes of
+stage 2's batch plans at that data's scale, counted on the host; then
+``cli.train`` at run.sh's settings (batch 32, dropout 0.1, remat, cut_a,
+buckets of 32, no ``--uniform-shapes``) for three epochs of 400 such
+dialogs, graphed, graphed with at most 8 sets kept, and eager, all three
+bitwise equal: each epoch's wall seconds, shapes, captures, evictions,
+rebuilt sets, capture seconds, the card's peak reserved bytes and the
+host's resident bytes.
 """
 
 from __future__ import annotations
@@ -875,30 +906,40 @@ def profiled_batches(torch, ak, fk, fn, rounds: int = 2) -> dict:
 
 
 @contextlib.contextmanager
-def graph_runners():
-    """Every decoder's ``GraphRunner`` made inside the block (the CLIs'
-    and sessions' own), to read their counts after it."""
+def graph_runners(cls=None):
+    """Every decoder's ``GraphRunner`` (or every ``cls``: a trainer's
+    ``StepGraphs``) made inside the block (the CLIs' and sessions' own),
+    to read their counts after it."""
     from mtn_tpu_torch.decode import graphs
-    made, init = [], graphs.GraphRunner.__init__
+    cls = cls or graphs.GraphRunner
+    made, init = [], cls.__init__
 
     def recorded(self, *args, **kwargs):
         init(self, *args, **kwargs)
         made.append(self)
-    graphs.GraphRunner.__init__ = recorded
+    cls.__init__ = recorded
     try:
         yield made
     finally:
-        graphs.GraphRunner.__init__ = init
+        cls.__init__ = init
 
 
 def runner_counts(runners) -> dict:
     """Batches, the distinct shapes among them, the program sets built
-    (captures), kept, and the batches run eagerly, over ``runners``."""
-    return dict(batches=sum(r.batches for r in runners),
-                shapes=sum(len(r.seen) for r in runners),
-                captures=sum(r.captures for r in runners),
-                sets=sum(len(r.sets) for r in runners),
-                eager=sum(r.eager for r in runners))
+    (captures), dropped for another (evictions), kept, and the batches
+    run eagerly, over ``runners``; for a trainer's, the distinct train
+    (and accumulation) shapes."""
+    from mtn_tpu_torch.train.graphs import StepGraphs
+    out = dict(batches=sum(r.batches for r in runners),
+               shapes=sum(len(r.seen) for r in runners),
+               captures=sum(r.captures for r in runners),
+               evictions=sum(r.evictions for r in runners),
+               sets=sum(len(r.sets) for r in runners),
+               eager=sum(r.eager for r in runners))
+    if any(isinstance(r, StepGraphs) for r in runners):
+        out["train_shapes"] = sum(k[0] != "eval" for r in runners
+                                  for k in r.seen)
+    return out
 
 
 @contextlib.contextmanager
@@ -2424,15 +2465,19 @@ def data_phase(torch, corpus: dict, root: str) -> dict:
 
 
 def tools_phase(torch, generate, corpus: dict, root: str) -> dict:
-    """``cli.train`` on the card at the flagship widths and 2 blocks, two
-    epochs of one 48-turn batch (the valid set): run (t) with ``--profile-dir
-    --nan-checks 1 --async-save 1 --feature-cache``, run (s) the same with
-    blocking saves and no profiler (the cache now warm). Both checkpoint
-    directories must be bitwise equal and the trace must exist; then
-    ``python -m mtn_tpu_torch.utils.average`` averages (t)'s two epochs on
-    the card, bitwise equal to the same mean on the CPU, and
-    ``cli.generate`` beam-decodes the averaged family."""
+    """``cli.train`` on the card at the flagship widths and 2 blocks, three
+    epochs of one 48-turn batch (the valid set): run (t) with
+    ``--profile-dir --async-save 1 --feature-cache``, its train and
+    validation steps graphed (each shape's first step eager, its second
+    captured, its third replayed), run (s) with ``--nan-checks 1``, which
+    runs every step eagerly, blocking saves and no profiler (the cache
+    now warm). Both checkpoint directories must be bitwise equal and the
+    trace must exist; then ``python -m mtn_tpu_torch.utils.average``
+    averages (t)'s last two epochs on the card, bitwise equal to the
+    same mean on the CPU, and ``cli.generate`` beam-decodes the averaged
+    family."""
     from mtn_tpu_torch.cli import train as train_cli
+    from mtn_tpu_torch.train.graphs import StepGraphs
     from mtn_tpu_torch.utils import average
     from mtn_tpu_torch.utils.profiling import TRACE_STEPS
     from mtn_tpu_torch.weights import load_checkpoint
@@ -2440,15 +2485,17 @@ def tools_phase(torch, generate, corpus: dict, root: str) -> dict:
     cache, prof = os.path.join(base, "cache"), os.path.join(base, "prof")
     common = ("--nb-blocks", str(TOOLS_BLOCKS), "--train-set",
               corpus["valid_set"], "--batch-size", "48",
-              "--keep-checkpoints", "0", "--nan-checks", "1",
+              "--keep-checkpoints", "0", "--num-epochs", "3",
               "--feature-cache", cache)
-    runs, walls = {}, {}
+    runs, walls, programs = {}, {}, {}
     for name, extra in (("t", ("--profile-dir", prof, "--async-save", "1")),
-                        ("s", ())):
+                        ("s", ("--nan-checks", "1"))):
         prefix = os.path.join(base, name, "mtn")
         t0 = time.time()
-        rc = train_cli.main(train_argv(corpus, prefix, *common, *extra))
+        with graph_runners(StepGraphs) as made:
+            rc = train_cli.main(train_argv(corpus, prefix, *common, *extra))
         walls[name] = time.time() - t0
+        programs[name] = runner_counts(made)
         if rc != 0:
             raise AssertionError(f"tools run ({name}): exit code {rc}")
         runs[name] = prefix
@@ -2485,11 +2532,14 @@ def tools_phase(torch, generate, corpus: dict, root: str) -> dict:
                trace_bytes=[os.path.getsize(t) for t in traces],
                trace_steps=TRACE_STEPS,
                cache_entries=len(os.listdir(cache)), wall_s=walls,
+               step_programs=programs,
                average_rc=avg_rc, average_and_decode_s=avg_s,
                average_card_equals_cpu=average_bitwise,
                averaged_answers=len(answers),
                averaged_example=answers[0] if answers else None)
     out["ok"] = (bitwise and len(traces) == 1 and avg_rc == 0
+                 and programs["t"]["captures"] == 2
+                 and programs["s"]["batches"] == 0
                  and average_bitwise
                  and len(answers) == N_DIALOGS
                  and "__UNDISCLOSED__" not in answers
@@ -2557,14 +2607,18 @@ def read_csv(path: str):
 def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
               *extra) -> dict:
     """One ``cli.train.main`` run (two epochs); its kernel launches (all,
-    and those inside train steps), losses and checkpoint meta. Fails if a
+    and those inside train steps), its trainer's step programs (steps,
+    distinct shapes, train shapes, captures, eager steps), losses and
+    checkpoint meta. Fails if a
     loss is not finite, if the mean of the last steps' losses is not
     below the first steps', or if meta.json has no best epoch."""
     from mtn_tpu_torch.cli import train as train_cli
+    from mtn_tpu_torch.train.graphs import StepGraphs
     prefix = os.path.join(root, name, "mtn")
     ak.KERNEL.launches = fk.KERNEL.launches = 0
     t0 = time.time()
-    with StepLaunches(ak, fk) as steps:
+    with StepLaunches(ak, fk) as steps, \
+            graph_runners(StepGraphs) as runners:
         rc = train_cli.main(train_argv(corpus, prefix, *extra))
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -2584,6 +2638,7 @@ def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
                        for r in read_csv(prefix + "_trace.csv")},
                best_epoch=meta.get("best_epoch"), wall_s=wall,
                launches=launches, train_step_launches=steps.counts,
+               step_programs=runner_counts(runners),
                median_reported_tokens_per_sec=(
                    sorted(tps[1:])[len(tps[1:]) // 2] if len(tps) > 1
                    else None))
@@ -2740,8 +2795,8 @@ def attention_backward_closed(torch, q, k, v, m, g):
 
 def profile_step(torch, ak, fk, tr, state, db) -> dict:
     """One train step under torch.profiler: device time by kernel group,
-    busy time, launches, the hand-written kernels' calls and the top host
-    ops by self time."""
+    busy time, launches, the hand-written kernels' calls (counted, and
+    seen by the profiler) and the top host ops by self time."""
     from torch.profiler import ProfilerActivity, profile
     ak.KERNEL.launches = fk.KERNEL.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
@@ -2749,6 +2804,13 @@ def profile_step(torch, ak, fk, tr, state, db) -> dict:
         tr.train_step(state, db, 0)
         torch.cuda.synchronize()
     groups, launches, top = device_groups(torch, prof)
+    seen = {g: 0 for g in ("attention (csrc)", "ffn (csrc)")}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                kernel_group(e.key) in seen:
+            seen[kernel_group(e.key)] += e.count
+    calls = {"attention (csrc)": ak.KERNEL.launches,
+             "ffn (csrc)": fk.KERNEL.launches}
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key[:60])
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
@@ -2756,18 +2818,21 @@ def profile_step(torch, ak, fk, tr, state, db) -> dict:
     return {"device_busy_ms": sum(groups.values()) if launches
             else "not measured",
             "device_ms_by_group": groups, "device_launches": launches,
-            "kernel_calls": {"attention (csrc)": ak.KERNEL.launches,
-                             "ffn (csrc)": fk.KERNEL.launches},
+            "kernel_calls": calls,
+            "kernel_calls_seen": seen if launches else "not measured",
+            "counts_match": seen == calls,
             "top_kernels": top, "top_host_ops_self_ms": host}
 
 
 def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
     """Warm bf16 train steps of run (b)'s configuration (batch 8, dropout
-    0) from its trained checkpoint, with both kernels and with both off
-    (the plain path, plain autograd): host wall time per step (two
-    rounds of 3 steps each, alternating, so host drift hits both) and
-    tokens/sec; under torch.profiler each step's device time by kernel
-    group, busy and idle share, launches and top host ops. Then each
+    0) from its trained checkpoint, eager, with both kernels and with
+    both off (the plain path, plain autograd; the graphed step's reading
+    is ``[train-graphs]`` b_bf16's): host wall time per step (two rounds
+    of 3 steps each, alternating, so host drift hits both) and tokens/sec;
+    under torch.profiler each step's device time by kernel group, busy
+    and idle share, launches, the kernels' calls counted and seen, and
+    top host ops. Then each
     kernel's device µs per call at every shape the kernel step launched
     it at, beside the plain version's and SDPA's on the same inputs, and
     forward plus backward per call three ways: the wrapper (kernel, then
@@ -2784,13 +2849,13 @@ def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
     sd = load_checkpoint(prefix)[0]
     db = device_batch(hb, "cuda", "bfloat16")
     runs = {}
-    for name, kernels in (("kernels", True), ("plain", False)):
+    for name, kernels in (("eager", True), ("plain", False)):
         cfg = config_from_dict("model", conf["model"])
         cfg.use_pallas_attention = cfg.use_pallas_ffn = kernels
         tr = Trainer(cfg, TrainConfig(warmup_steps=WARMUP), "cuda")
+        tr.graphed = lambda t: False
         state = tr.state_from(sd)
-        for _ in range(2):
-            tr.train_step(state, db, 0)
+        tr.train_step(state, db, 0)
         runs[name] = (tr, state)
     torch.cuda.synchronize()
     walls = {name: [] for name in runs}
@@ -2802,7 +2867,7 @@ def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) / 3 * 1e3)
     ntok = metrics["ntokens"].item()
-    tr, state = runs["kernels"]
+    tr, state = runs["eager"]   # the launches' own arguments
     seen = record_launches(ak, fk, lambda: tr.train_step(state, db, 0))
     torch.cuda.synchronize()
     steps = {}
@@ -2870,10 +2935,443 @@ def train_profile(torch, ak, fk, corpus: dict, prefix: str) -> dict:
         rows.append(row)
     del runs, tr, state
     torch.cuda.empty_cache()
-    out = {"batch": list(hb.query.shape), "answer_tokens": ntok}
-    out.update(steps.pop("kernels"))
-    out["kernels_off"] = steps.pop("plain")
-    out["kernels"] = rows
+    out = {"batch": list(hb.query.shape), "answer_tokens": ntok,
+           "eager": steps["eager"], "kernels_off": steps["plain"],
+           "kernels": rows}
+    out["counts_match"] = all(v["counts_match"] for v in steps.values())
+    return out
+
+
+# -- [train-graphs]: each train, accumulation and eval step as one program ----
+TRAIN_GRAPH_STEPS = 4    # the shape's first step (eager), the capture, replays
+TRAIN_GRAPH_RESUME = 3   # steps after a mid-run step checkpoint's resume
+TRAIN_GRAPH_CLIP = 1.0   # the accumulation step's --grad-clip
+
+
+@contextlib.contextmanager
+def mask_tape(torch):
+    """Every tensor ``bernoulli_`` fills inside the block (the dropout
+    masks, scaled in place by 1/(1 - rate) after the draw), in call
+    order, with whether the thread's stream was capturing: a capture's
+    masks are the graph's own buffers, which each replay refills."""
+    tape, orig = [], torch.Tensor.bernoulli_
+
+    def bernoulli_(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        tape.append((torch.cuda.is_current_stream_capturing(), out))
+        return out
+    torch.Tensor.bernoulli_ = bernoulli_
+    try:
+        yield tape
+    finally:
+        torch.Tensor.bernoulli_ = orig
+
+
+def state_tensors(state) -> list:
+    """A train state's masters, Adam's moments and its device count."""
+    o = state.opt_state
+    return [*state.params.values(), *o.mu, *o.nu, o.t]
+
+
+def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
+                resume_dir=None) -> dict:
+    """A graphed trainer and its eager twin (``graphed`` False on this
+    instance) from the same state, ``step(trainer, state, batch)`` on
+    both in turns TRAIN_GRAPH_STEPS times (the graphed one: the shape's
+    first step eager, then the capture, then replays): each step's
+    metrics, dropout masks and kernel launches compared bitwise, then the
+    masters, moments, device count and counts; the capture's seconds and
+    pool bytes; with ``resume_dir``, the graphed state saved there as an
+    async step checkpoint and restored into a new graphed trainer, and
+    both trainers stepped TRAIN_GRAPH_RESUME more times (the resumed one
+    from its shape's first step again), their metrics and states
+    bitwise; then host wall per warm step, device busy and idle,
+    launches and tokens/sec of each twin, one call of each under the
+    profiler, whose kernel counts must equal the kernels' own."""
+    from mtn_tpu_torch.train.trainer import Trainer
+    tg = Trainer(cfg, tcfg, "cuda")
+    te = Trainer(cfg, tcfg, "cuda")
+    te.graphed = lambda t: False
+    sg, se = tg.state_from(sd), te.state_from(sd)
+    same_metrics = same_masks = same_launches = True
+    kinds, masks, launches, captured, pool = [], [], [], [], None
+    for _ in range(TRAIN_GRAPH_STEPS):
+        counts = []
+        for tr, state in ((te, se), (tg, sg)):
+            before = (tr.graphs.captures, tr.graphs.eager)
+            torch.cuda.synchronize()
+            if tr is tg and before[1] == 1:     # this step captures
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+            n0 = (ak.KERNEL.launches, fk.KERNEL.launches)
+            with mask_tape(torch) as tape:
+                metrics = step(tr, state, batch)
+                torch.cuda.synchronize()
+            counts.append((ak.KERNEL.launches - n0[0],
+                           fk.KERNEL.launches - n0[1]))
+            if tr is te:
+                want, want_masks = metrics, [t for _, t in tape]
+                continue
+            if tr.graphs.captures > before[0]:
+                kinds.append("capture")
+                captured = [t for c, t in tape if c]
+                got_masks = [t for c, t in tape if not c]   # the warm-up
+                torch.cuda.empty_cache()
+                pool = torch.cuda.memory_reserved() - reserved
+            elif tr.graphs.eager > before[1]:
+                kinds.append("eager")
+                got_masks = [t for _, t in tape]
+            else:
+                kinds.append("replay")
+                got_masks = captured
+        same_metrics &= want.keys() == metrics.keys() and all(
+            torch.equal(want[k], metrics[k]) for k in want)
+        same_masks &= len(want_masks) == len(got_masks) and all(
+            torch.equal(a, b) for a, b in zip(want_masks, got_masks))
+        same_launches &= counts[0] == counts[1]
+        masks.append(len(want_masks))
+        launches.append(counts[1])
+    del want_masks, got_masks, captured
+    same_state = (sg.step, sg.opt_state.count) == (se.step,
+                                                   se.opt_state.count) and all(
+        torch.equal(a, b) for a, b in zip(state_tensors(sg),
+                                          state_tensors(se)))
+    ps = next(iter(tg.graphs.sets.values()))
+    ntok = want["ntokens"].item()
+    resumed = None
+    if resume_dir is not None:
+        from mtn_tpu_torch.utils.checkpoint import CheckpointManager
+        ckpt = CheckpointManager(resume_dir, async_save=True)
+        ckpt.save_step(sg, 0, TRAIN_GRAPH_STEPS)
+        tr = Trainer(cfg, tcfg, "cuda")
+        sr = ckpt.restore_step(tr.init_state(0))[0]
+        same = sr.step == sg.step
+        for _ in range(TRAIN_GRAPH_RESUME):
+            a, b = step(tg, sg, batch), step(tr, sr, batch)
+            same &= all(torch.equal(a[k], b[k]) for k in a)
+        same &= (sr.step, sr.opt_state.count) == (
+            sg.step, sg.opt_state.count) and all(
+            torch.equal(a, b) for a, b in zip(state_tensors(sr),
+                                              state_tensors(sg)))
+        resumed = dict(at_step=TRAIN_GRAPH_STEPS, steps=TRAIN_GRAPH_RESUME,
+                       bitwise=bool(same), runner=runner_counts([tr.graphs]))
+        del tr, sr
+    timing = {}
+    for name, tr, state in (("graphed", tg, sg), ("eager", te, se)):
+        row = profiled_batches(torch, ak, fk,
+                               lambda: step(tr, state, batch))
+        row["tokens_per_sec"] = ntok / row["wall_ms"] * 1e3
+        timing[name] = row
+    out = dict(steps=kinds, masks_per_step=masks,
+               launches_per_step=launches, metrics_bitwise=same_metrics,
+               masks_bitwise=same_masks, launches_equal=same_launches,
+               state_bitwise=same_state, capture_s=ps.capture_s(),
+               pool_bytes=pool, tokens_per_step=ntok, **timing,
+               runner=runner_counts([tg.graphs]), resumed=resumed)
+    out["ok"] = (same_metrics and same_masks and same_launches
+                 and same_state and kinds[:2] == ["eager", "capture"]
+                 and (resumed is None or resumed["bitwise"])
+                 and set(kinds[2:]) == {"replay"}
+                 and all(r["counts_match"] for r in timing.values()))
+    del tg, te, sg, se, ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_graphs_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
+    """``[train-graphs]``: on the seeded flagship (both kernels), graphed
+    against eager (:func:`graph_twins`) for run (b)'s train step (batch
+    8, dropout 0) in bf16 and f32, run (a)'s (bf16, batch 32, dropout and
+    attention dropout 0.1, remat: the kernels stay out of the train step,
+    as in JAX; also resumed from a step checkpoint taken mid-run), an
+    accumulation step of two 4-row microbatches with
+    --grad-clip and remat (run (b)'s settings otherwise: the kernels
+    launch in the forward and again in the recomputation, from autograd's
+    device thread) and an eval step (batch 8)."""
+    import copy
+    from mtn_tpu_torch.config import TrainConfig, config_from_dict
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_checkpoint
+    conf, hb8 = train_batch(corpus, corpus["prefix"], 8)
+    _, hb32 = train_batch(corpus, corpus["prefix"], 32)
+    sd = load_checkpoint(corpus["prefix"])[0]
+    base = config_from_dict("model", conf["model"])
+    base.use_pallas_attention = base.use_pallas_ffn = True
+    base.dropout = base.attn_dropout = 0.0
+
+    def cfg(dtype="bfloat16", **kw):
+        c = copy.deepcopy(base)
+        c.dtype = dtype
+        for k, v in kw.items():
+            setattr(c, k, v)
+        return c
+    tcfg = TrainConfig(warmup_steps=WARMUP)
+    train = lambda tr, state, b: tr.train_step(state, b, 1)[1]
+    accum = lambda tr, state, b: tr.train_step_accum(state, b, 1)[1]
+
+    def evaluate(tr, state, b):
+        tr.load(state.params)
+        return tr.eval_step(b)
+    cases = {
+        "b_bf16": (cfg(), tcfg, device_batch(hb8, "cuda", "bfloat16"),
+                   train),
+        "b_f32": (cfg("float32"), tcfg, device_batch(hb8, "cuda",
+                                                     "float32"), train),
+        "a_bf16": (cfg(dropout=0.1, attn_dropout=0.1, remat=True), tcfg,
+                   device_batch(hb32, "cuda", "bfloat16"), train),
+        "accum_bf16": (cfg(remat=True), TrainConfig(
+            warmup_steps=WARMUP, grad_clip=TRAIN_GRAPH_CLIP),
+                       [device_batch(host_rows(hb8, lo, 4), "cuda",
+                                     "bfloat16") for lo in (0, 4)], accum),
+        "eval_bf16": (cfg(), tcfg, device_batch(hb8, "cuda", "bfloat16"),
+                      evaluate),
+    }
+    out = {}
+    for name, (c, t, b, step) in cases.items():
+        t0 = time.time()
+        out[name] = graph_twins(
+            torch, ak, fk, c, t, sd, b, step,
+            os.path.join(root, "train_graphs", "mtn") if name == "a_bf16"
+            else None)
+        out[name]["seconds"] = time.time() - t0
+    seen = out["b_bf16"]["graphed"]["kernel_launches_seen"]
+    out["kernels_in_replays"] = (isinstance(seen, dict)
+                                 and min(seen.values()) > 0)
+    out["ok"] = out["kernels_in_replays"] and all(
+        v["ok"] for k, v in out.items() if isinstance(v, dict))
+    return out
+
+
+# -- --train-traffic: stage 2 over the many step shapes of varied lengths ---
+TRAFFIC_DIALOGS = (400, 100)   # train, valid; 10 turns each
+TRAFFIC_EPOCHS = 3
+TRAFFIC_BOUND = 8              # the bound the policy also runs at, below
+                               # the shapes' count
+
+
+def traffic_dialogs(rng, prefix: str, n: int):
+    """``n`` dialogs in DSTC7-AVSD's layout (10 question-answer turns, a
+    caption and a summary a video) whose lengths vary as that data's do,
+    and each video's (I3D, VGGish) frame counts: words a question ~
+    lognormal(ln 7.5, 0.35) in [3, 30], an answer ~ lognormal(ln 9,
+    0.55) in [1, 45], a caption ~ lognormal(ln 16, 0.4) in [5, 60] and a
+    summary ~ lognormal(ln 17, 0.45) in [5, 70]; I3D frames uniform in
+    [40, 80] and VGGish in [20, 40], as ``scripts/make_synth_dstc7.py``
+    draws them. Words are the flagship vocabulary's 6000, the captions
+    and summaries running through all of them in turn."""
+    import numpy as np
+    words = np.array([f"w{i}" for i in range(FLAGSHIP["vocab_size"] - 4)])
+    at = [0]
+
+    def say(mu, sigma, lo, hi, cover=False):
+        k = int(np.clip(np.round(rng.lognormal(np.log(mu), sigma)), lo, hi))
+        if cover:
+            idx = (at[0] + np.arange(k)) % len(words)
+            at[0] += k
+        else:
+            idx = rng.integers(0, len(words), k)
+        return " ".join(words[idx])
+    out, frames = [], {}
+    for d in range(n):
+        vid = f"{prefix}{d:05d}"
+        out.append({"image_id": vid,
+                    # a trailing space keeps caption + summary apart
+                    "caption": say(16, 0.4, 5, 60, True) + " ",
+                    "summary": say(17, 0.45, 5, 70, True) + " ",
+                    "dialog": [{"question": say(7.5, 0.35, 3, 30),
+                                "answer": say(9, 0.55, 1, 45)}
+                               for _ in range(10)]})
+        frames[vid] = (int(rng.integers(40, 81)), int(rng.integers(20, 41)))
+    return out, frames
+
+
+def write_traffic_corpus(root: str, seed: int = 1) -> dict:
+    """Train and valid sets of TRAFFIC_DIALOGS :func:`traffic_dialogs`
+    and their .npy features at the flagship width."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    corpus = {"fea_types": ["i3d_rgb", "vggish"],
+              "fea_path": os.path.join(root, "<FeaType>", "<ImageID>.npy")}
+    frames = {}
+    for name, prefix, n in (("train_set", "tt", TRAFFIC_DIALOGS[0]),
+                            ("valid_set", "tv", TRAFFIC_DIALOGS[1])):
+        ds, fr = traffic_dialogs(rng, prefix, n)
+        frames.update(fr)
+        corpus[name] = os.path.join(root, name + ".json")
+        with open(corpus[name], "w") as f:
+            json.dump({"type": "test", "version": "0.1", "dialogs": ds}, f)
+    for j, (ftype, dim) in enumerate(zip(corpus["fea_types"],
+                                         FLAGSHIP["ft_sizes"])):
+        os.makedirs(os.path.join(root, ftype))
+        for vid, fr in frames.items():
+            np.save(os.path.join(root, ftype, vid + ".npy"),
+                    rng.standard_normal((fr[j], dim)).astype(np.float32))
+    return corpus
+
+
+def traffic_shapes(root: str, n_dialogs: dict, seed: int = 2) -> dict:
+    """The step shapes stage 2 would meet on :func:`traffic_dialogs` at
+    ``n_dialogs`` (split -> dialogs; DSTC7-AVSD has 7,659 train and 1,787
+    valid dialogs), from the train CLI's own batch plans (batch 32,
+    ``--max-length 256``, buckets of 32) on the host, without features
+    on disk: each split's batches and distinct shapes, and the share of
+    train steps the most frequent 8, 16, 32, 64 and 128 shapes take."""
+    import collections
+
+    import numpy as np
+    from mtn_tpu_torch.data.batching import _round_up, make_batch_indices
+    from mtn_tpu_torch.data.dataset import load
+    from mtn_tpu_torch.data.vocab import get_vocabulary
+    rng = np.random.default_rng(seed)
+    out = {}
+    for split, n in n_dialogs.items():
+        ds, frames = traffic_dialogs(rng, split[:2], n)
+        path = os.path.join(root, f"shapes_{split}.json")
+        with open(path, "w") as f:
+            json.dump({"dialogs": ds}, f)
+        vocab = get_vocabulary(path, cutoff=0,
+                               include_caption="caption,summary")
+        data = load(None, "", path, vocab, include_caption="caption,summary",
+                    separate_caption=True)
+        data.features = _Frames(frames)
+        plans, _ = make_batch_indices(data, 32, max_length=256,
+                                      separate_caption=True)
+        r = lambda n: _round_up(n, 32)
+        count = collections.Counter(
+            (p.n_seqs, r(p.h_len), r(p.q_len), r(p.a_len), r(p.c_len),
+             tuple(r(x) for x in p.x_len)) for p in plans)
+        top = sorted(count.values(), reverse=True)
+        out[split] = dict(dialogs=n, batches=len(plans), shapes=len(count),
+                          once=sum(c == 1 for c in top),
+                          top_share={k: sum(top[:k]) / len(plans)
+                                     for k in (8, 16, 32, 64, 128)})
+    return out
+
+
+class _Frames:
+    """Frame counts by video, as a feature registry gives them."""
+
+    def __init__(self, frames: dict):
+        self.frames = frames
+
+    def __len__(self) -> int:
+        return 2
+
+    def n_frames(self, stream: int, vid: str) -> int:
+        return self.frames[vid][stream]
+
+
+def vm_rss() -> int:
+    """This process's resident host bytes."""
+    with open("/proc/self/status") as f:
+        kb = next(line.split()[1] for line in f
+                  if line.startswith("VmRSS:"))
+    return int(kb) * 1024
+
+
+def traffic_run(torch, corpus: dict, root: str, name: str,
+                bound=None, eager: bool = False) -> dict:
+    """One ``cli.train`` run of stage 2 at run.sh's settings (batch 32,
+    dropout 0.1, remat, cut_a, lengths and frames in buckets of 32, no
+    ``--uniform-shapes``) for TRAFFIC_EPOCHS epochs, its steps graphed
+    (with ``bound``: at most that many sets kept) or ``eager``: each
+    epoch's train and validation wall seconds, the step programs'
+    counts with the sets rebuilt (built again after their eviction) and
+    the seconds spent capturing, the card's peak reserved bytes and the
+    host's resident bytes at each epoch's end, the losses and the last
+    epoch's checkpoint."""
+    from mtn_tpu_torch.cli import train as train_cli
+    from mtn_tpu_torch.decode.graphs import ProgramCache
+    from mtn_tpu_torch.train import graphs
+    from mtn_tpu_torch.train.trainer import Trainer
+    from mtn_tpu_torch.weights import load_checkpoint
+    prefix = os.path.join(root, name, "mtn")
+    epochs, built, capture_s = [], [], [0.0]
+    orig_epoch, orig_graphed = Trainer.run_epoch, Trainer.graphed
+    orig_set, orig_bound = graphs.StepGraphs._set, graphs.MAX_PROGRAMS
+
+    def run_epoch(tr, state, batches, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_epoch(tr, state, batches, *args, **kwargs)
+        torch.cuda.synchronize()
+        epochs.append(dict(train=kwargs.get("train", True),
+                           seconds=time.perf_counter() - t0,
+                           reserved_peak=torch.cuda.max_memory_reserved(),
+                           host_rss=vm_rss(), sets=len(tr.graphs.sets)))
+        return out
+
+    def step_set(sg, key, make):
+        n = sg.captures
+        ps = ProgramCache._set(sg, key, make)
+        if sg.captures > n:
+            built.append(key)
+            capture_s[0] += sum(ps.capture_s().values())
+        return ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = vm_rss()
+    Trainer.run_epoch = run_epoch
+    graphs.StepGraphs._set = step_set
+    if eager:
+        Trainer.graphed = lambda tr, t: False
+    if bound is not None:
+        graphs.MAX_PROGRAMS = bound
+    t0 = time.time()
+    try:
+        with graph_runners(graphs.StepGraphs) as runners:
+            rc = train_cli.main(train_argv(
+                corpus, prefix, "--batch-size", "32", "--cut-a", "1",
+                "--remat", "1", "--num-epochs", str(TRAFFIC_EPOCHS)))
+            torch.cuda.synchronize()
+    finally:
+        Trainer.run_epoch, Trainer.graphed = orig_epoch, orig_graphed
+        graphs.StepGraphs._set, graphs.MAX_PROGRAMS = orig_set, orig_bound
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"traffic run {name}: exit code {rc}")
+    counts = runner_counts(runners)
+    counts["eval_shapes"] = counts["shapes"] - counts["train_shapes"]
+    counts["rebuilt"] = len(built) - len(set(built))
+    counts["capture_s"] = capture_s[0]
+    del runners
+    rows = read_csv(prefix + "_train.csv")
+    return dict(run=name, bound=bound if bound is not None else (
+        None if eager else graphs.MAX_PROGRAMS), eager=eager, wall_s=wall,
+                steps=len(rows), epochs=epochs, host_rss_start=rss0,
+                step_programs=counts,
+                losses=[r["loss"] for r in rows],
+                checkpoint=load_checkpoint(prefix, "latest")[0])
+
+
+def train_traffic(torch, root: str) -> dict:
+    """``chip_smoke.py --train-traffic``: stage 2 on a corpus of varied
+    lengths (:func:`write_traffic_corpus`, more step shapes than
+    TRAFFIC_BOUND), three ways from the same seed: graphed under the
+    trainer's own bound, graphed at TRAFFIC_BOUND (the admission policy
+    at work), eager. Every run's losses and last checkpoint must be
+    bitwise the eager run's."""
+    plans = traffic_shapes(root, {"train": 7659, "valid": 1787})
+    corpus = write_traffic_corpus(os.path.join(root, "traffic"))
+    runs = {"graphed": traffic_run(torch, corpus, root, "graphed"),
+            "bounded": traffic_run(torch, corpus, root, "bounded",
+                                   bound=TRAFFIC_BOUND),
+            "eager": traffic_run(torch, corpus, root, "eager", eager=True)}
+    ref = runs["eager"]
+    for r in runs.values():
+        r["bitwise_eager"] = r["losses"] == ref["losses"] and all(
+            torch.equal(t, ref["checkpoint"][k])
+            for k, t in r["checkpoint"].items())
+    for r in runs.values():
+        del r["losses"], r["checkpoint"]
+    shapes = runs["graphed"]["step_programs"]
+    out = dict(dstc7_scale_plans=plans, runs=runs,
+               ok=all(r["bitwise_eager"] for r in runs.values())
+               and shapes["shapes"] > TRAFFIC_BOUND
+               and shapes["train_shapes"] > TRAFFIC_BOUND)
     return out
 
 
@@ -3422,6 +3920,18 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                         "spill", "error")):
                 print("[build] " + line.strip())
+    if sys.argv[1:] == ["--train-traffic"]:
+        with tempfile.TemporaryDirectory() as root:
+            traffic = train_traffic(torch, root)
+        print(f"[train-traffic] plans at DSTC7-AVSD's scale: "
+              f"{json.dumps(traffic.pop('dstc7_scale_plans'))}")
+        for name, row in traffic.pop("runs").items():
+            print(f"[train-traffic] {name} {json.dumps(row)}")
+        print(f"[train-traffic] {card}")
+        if not traffic["ok"]:
+            return fail("train-traffic: a graphed run differs from the "
+                        "eager one, or the corpus brought too few shapes")
+        return 0
 
     gen = torch.Generator().manual_seed(0)
     rows = []
@@ -3665,9 +4175,24 @@ def main() -> int:
         phase_s["data, tools"] = time.time() - t_phase
         t_phase = time.time()
 
+        # each train, accumulation and eval step as one captured program,
+        # against the eager step
+        tgraphs = train_graphs_phase(torch, ak, fk, corpus, root)
+        for key, row in tgraphs.items():
+            if isinstance(row, dict):
+                print(f"[train-graphs] {key} {json.dumps(row)}")
+        print(f"[train-graphs] both kernels inside run (b)'s replays: "
+              f"{tgraphs['kernels_in_replays']}; {card}")
+        if not tgraphs["ok"]:
+            return fail("train-graphs: a graphed step differs from the eager "
+                        "one, a kernel did not run inside a replay, or the "
+                        "kernels' counts differ from the profiler's")
+        phase_s["train-graphs"] = time.time() - t_phase
+        t_phase = time.time()
+
         # stage 2: (a) run.sh's dropout, batch 32, remat and cut_a: the
         # kernels run only in validation, as in JAX; (b) dropout 0, batch
-        # 8: both kernels run inside train steps too
+        # 8: both kernels run inside train steps too; both graphed
         run_a = train_run(torch, ak, fk, corpus, root, "a", "--batch-size",
                           "32", "--cut-a", "1", "--remat", "1")
         print(f"[train] {json.dumps(run_a)}")
@@ -3698,9 +4223,13 @@ def main() -> int:
         tprof = train_profile(torch, ak, fk, corpus, run_b["prefix"])
         for r in tprof.pop("kernels"):
             print("[train-kernel] " + json.dumps(r))
+        tprof = {"graphed": tgraphs["b_bf16"]["graphed"], **tprof}
         print(f"[train-profile] one warm train step (batch 8, bf16, dropout "
-              f"0, both kernels; kernels_off: both off): "
-              f"{json.dumps(tprof)}")
+              f"0; graphed, from [train-graphs] b_bf16, and eager: both "
+              f"kernels; kernels_off: both off, eager): {json.dumps(tprof)}")
+        if not tprof["counts_match"]:
+            return fail("train-profile: the kernels' counts differ from the "
+                        "profiler's")
         phase_s["train"] = time.time() - t_phase
     print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 

@@ -16,7 +16,11 @@ feature blocks from a write-once cache after their first read,
 ``--async-save 1`` writes checkpoints on a background thread,
 ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run and
 ``--nan-checks 1`` raises at the first step whose loss or gradients are
-not finite. Under ``--multihost`` every rank runs this command: each
+not finite. On a GPU each train and validation step whose shape has
+come before replays one captured CUDA graph
+(``mtn_tpu_torch/train/graphs.py``; not under ``--nan-checks 1`` or a
+mesh), and each epoch logs the steps, shapes, captures and eager steps
+so far. Under ``--multihost`` every rank runs this command: each
 batch's rows are cut over the ``data`` ranks, the model over the
 ``model`` ranks, and rank 0 alone writes the logs, the sidecars and the
 checkpoints (full tensors, loadable on one device).
@@ -307,6 +311,12 @@ def main(argv=None):
                                 feature_cache=feature_cache)
             _, valid_loss = trainer.run_epoch(state, vit, train=False)
             log.info("epoch: %d validation loss: %f", epoch + 1, valid_loss)
+            steps = trainer.graphs
+            if steps.batches:
+                log.info("step programs: %d steps, %d shapes, %d captures, "
+                         "%d evicted, %d eager, %d kept", steps.batches,
+                         len(steps.seen), steps.captures, steps.evictions,
+                         steps.eager, len(steps.sets))
             logs.epoch(epoch + 1, "train", train_loss)
             logs.epoch(epoch + 1, "val", valid_loss)
             ckpt.save(epoch + 1, state, val_loss=valid_loss,

@@ -55,9 +55,11 @@ an update in place reaches them, a new model needs a new decoder.
 Program sets are keyed by every value that fixes a shape or a branch
 (the mode, the batch's tensor shapes and types, the ``DecodeConfig``
 fields the loop reads, the model's config and whether its weights are
-int8), the role of ``jax.jit``'s cache. A capture costs about as much as
-a few eager batches and holds device memory, and served traffic can
-bring many shapes (each length rounded to its bucket), so a set is
+int8), the role of ``jax.jit``'s cache, and admitted by
+:class:`ProgramCache`, whose admission the trainer's step programs
+(:mod:`mtn_tpu_torch.train.graphs`) share with their own eviction rule. A capture costs about as
+much as a few eager batches and holds device memory, and served traffic
+can bring many shapes (each length rounded to its bucket), so a set is
 built only for a shape that comes back: a shape's first batch runs the
 eager loop. At most ``MAX_PROGRAMS`` sets are kept, the least recently
 used dropped first, and a shape takes the place of that set only when
@@ -79,7 +81,7 @@ import dataclasses
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -131,16 +133,25 @@ def _copy_into(dst, src) -> None:
 
 class Program:
     """``fn()``, a function that reads and writes the static tensors of
-    its set, as one CUDA graph (``capture``) or as it is."""
+    its set, as one CUDA graph (``capture``) or as it is. ``generators``:
+    the CUDA generators ``fn`` draws from, registered with the graph, so
+    that each replay draws from the seed and offset they hold then and
+    advances them as a run of ``fn`` would."""
 
-    def __init__(self, fn: Callable[[], None], capture: bool, pool=None):
+    def __init__(self, fn: Callable[[], None], capture: bool, pool=None,
+                 generators: Sequence[torch.Generator] = ()):
         self.fn, self.graph, self.calls, self.capture_s = fn, None, {}, 0.0
         if capture:
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
-            with _build.recording() as calls:
-                with torch.cuda.graph(self.graph, pool=pool,
-                                      capture_error_mode="thread_local"):
+            for g in generators:
+                self.graph.register_generator_state(g)
+            ctx = torch.cuda.graph(self.graph, pool=pool,
+                                   capture_error_mode="thread_local")
+            # the backward's launches come from autograd's device thread,
+            # on the capture stream
+            with _build.recording(ctx.capture_stream.cuda_stream) as calls:
+                with ctx:
                     fn()
             self.calls, self.fn = dict(calls), None
             self.capture_s = time.perf_counter() - t0
@@ -158,16 +169,18 @@ class ProgramSet:
     ``replays`` and ``reads`` (host reads of the exit test) count this
     set's runs."""
 
-    def __init__(self, batch, capture: bool):
+    def __init__(self, batch, capture: bool, pool=None):
         self.capture = capture
-        self.device = batch.query.device
+        self.device = _flat(batch)[0].device
         self.batch = _clone(batch)
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.pool = (pool if pool is not None or not capture
+                     else torch.cuda.graph_pool_handle())
         self.programs: Dict[str, Program] = {}
         self.replays = self.reads = 0
 
     def _build(self, warm_up: List[Callable[[], None]],
-               programs: Dict[str, Callable[[], None]]) -> None:
+               programs: Dict[str, Callable[[], None]],
+               generators: Sequence[torch.Generator] = ()) -> None:
         """Capture ``programs`` in their order after running ``warm_up``
         once on a side stream (run nothing when not capturing)."""
         if self.capture:
@@ -179,7 +192,8 @@ class ProgramSet:
                     fn()
             main.wait_stream(side)
         for name, fn in programs.items():
-            self.programs[name] = Program(fn, self.capture, self.pool)
+            self.programs[name] = Program(fn, self.capture, self.pool,
+                                          generators)
 
     def run_program(self, name: str) -> None:
         self.programs[name]()
@@ -378,19 +392,27 @@ class RankPrograms(ProgramSet):
         return self.total.reshape(self.cand.shape[:2]).clone()
 
 
-class GraphRunner:
-    """A decoder's program sets by key and its decodes: through a set
-    where one is kept or admitted, else through the decoder's eager loop
-    (see the module's docstring). ``captures`` counts the sets built,
-    ``eager`` the batches run eagerly. One decode runs at a time: the
-    sets' buffers are static."""
+class ProgramCache:
+    """Program sets by key, and the policy that admits them (see the
+    module's docstring): at most ``max_sets`` kept, shapes counted up to
+    ``max_seen``; a shape takes a full cache's place of the set
+    :meth:`_victim` names when it has been seen more than ``margin``
+    times as often. ``batches`` counts the lookups, ``captures`` the sets
+    built, ``evictions`` the sets dropped for another, ``eager`` the
+    batches refused a set."""
 
-    def __init__(self, capture: bool = True):
+    def __init__(self, capture: bool, max_sets: int, max_seen: int,
+                 margin: int = 1):
         self.capture = capture
+        self.max_sets, self.max_seen, self.margin = max_sets, max_seen, margin
         self.sets: "OrderedDict[tuple, ProgramSet]" = OrderedDict()
         self.seen: "OrderedDict[tuple, int]" = OrderedDict()
-        self.batches = self.captures = self.eager = 0
-        self._lock = threading.Lock()
+        self.batches = self.captures = self.evictions = self.eager = 0
+
+    def _victim(self) -> tuple:
+        """The key of the set a new shape would replace: the least
+        recently used."""
+        return next(iter(self.sets))
 
     def _set(self, key: tuple, make: Callable[[], ProgramSet]
              ) -> Optional[ProgramSet]:
@@ -398,24 +420,36 @@ class GraphRunner:
         for a batch that runs eagerly."""
         n = self.seen[key] = self.seen.pop(key, 0) + 1
         self.batches += 1
-        if self.batches % MAX_SEEN == 0:
+        if self.batches % self.max_seen == 0:
             for k in self.seen:
                 self.seen[k] //= 2
-        while len(self.seen) > MAX_SEEN:
+        while len(self.seen) > self.max_seen:
             del self.seen[next(k for k in self.seen if k not in self.sets)]
         ps = self.sets.get(key)
         if ps is None:
-            full = len(self.sets) >= MAX_PROGRAMS
-            oldest = next(iter(self.sets)) if full else None
-            if n < 2 or (full and n <= self.seen.get(oldest, 0)):
+            full = len(self.sets) >= self.max_sets
+            victim = self._victim() if full else None
+            if n < 2 or (full and n <= self.margin * self.seen[victim]):
                 self.eager += 1
                 return None
             if full:
-                del self.sets[oldest]
+                del self.sets[victim]
+                self.evictions += 1
             ps = self.sets[key] = make()
             self.captures += 1
         self.sets.move_to_end(key)
         return ps
+
+
+class GraphRunner(ProgramCache):
+    """A decoder's program sets by key and its decodes: through a set
+    where one is kept or admitted, else through the decoder's eager loop
+    (see the module's docstring). One decode runs at a time: the sets'
+    buffers are static."""
+
+    def __init__(self, capture: bool = True):
+        super().__init__(capture, MAX_PROGRAMS, MAX_SEEN)
+        self._lock = threading.Lock()
 
     @staticmethod
     def _model_key(dec) -> tuple:

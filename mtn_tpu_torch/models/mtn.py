@@ -16,10 +16,14 @@ Same architecture, parameter names and config branches as the JAX model:
 Training mode follows ``self.training`` (JAX's ``deterministic=False``):
 dropout after each positional encoding, on each sublayer's output, inside
 the FFNs, and on the attention probabilities (``attn_dropout``). With
-``remat`` each decoder layer's training forward runs under
-``torch.utils.checkpoint`` (``nn.remat(DecoderLayer)``): its activations
-are recomputed in the backward, with the RNG state of the forward, so
-dropout draws the same masks.
+``remat`` each decoder layer's training forward under a trainer's
+``collectives.Draws`` runs under ``torch.utils.checkpoint``
+(``nn.remat(DecoderLayer)``): its activations are recomputed in the
+backward, and dropout draws the forward's masks again, since each decoder
+layer draws from its own generator and the recomputation from that
+generator's twin, seeded alike. No RNG state is saved and restored, so
+the step can be captured in a CUDA graph. Remat is for training under a
+trainer: without its ``Draws`` the layers run as they are.
 
 With ``batched_ae`` (and more than one stream) the per-stream AE chains
 run as one stacked chain over (S, B, L, D), as JAX's
@@ -44,7 +48,8 @@ from mtn_tpu_torch.models.layers import (FeedForward, Generator,
                                          row_product, torch_dtype)
 from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.masks import attend_first_if_empty
-from mtn_tpu_torch.parallel.collectives import gather_last, sharded_dropout
+from mtn_tpu_torch.parallel.collectives import (active_draws, drawing,
+                                                gather_last, sharded_dropout)
 
 Tensor = torch.Tensor
 Position = Union[int, Tensor]
@@ -375,12 +380,20 @@ class Decoder(nn.Module):
 
     def forward(self, x, enc: Encoded, masks: SourceMasks, tgt_mask, ae_fts):
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                x, ae_fts = checkpoint(layer, x, enc, masks, tgt_mask,
-                                       ae_fts, use_reentrant=False)
+        draws = active_draws()
+        for i, layer in enumerate(self.layers):
+            args = (x, enc, masks, tgt_mask, ae_fts)
+            if draws is None:
+                x, ae_fts = layer(*args)
+            elif remat:
+                fwd, twin = draws.layers[i], draws.recompute[i]
+                x, ae_fts = checkpoint(
+                    layer, *args, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=lambda: (drawing(fwd), drawing(twin)))
             else:
-                x, ae_fts = layer(x, enc, masks, tgt_mask, ae_fts)
+                with drawing(draws.layers[i]):
+                    x, ae_fts = layer(*args)
         out_ae = tuple(self.ae_norm[i](ft) for i, ft in enumerate(ae_fts))
         return self.norm(x), out_ae
 

@@ -124,6 +124,8 @@ class Library:
 
 
 _RECORDING = threading.local()
+# the records of the captures in progress by capture stream (``cuda_stream``)
+_BY_STREAM: Dict[int, Dict] = {}
 # called with a graph's record (:func:`recording`) at each of its replays
 REPLAY_LISTENERS: List[Callable[[Dict], None]] = []
 
@@ -147,6 +149,9 @@ class Kernel(Library):
         the capture's record, by argument shapes, and not to
         ``launches``."""
         record = getattr(_RECORDING, "calls", None)
+        if record is None and _BY_STREAM:
+            import torch
+            record = _BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
         if record is None:
             self.launches += 1
         else:
@@ -155,15 +160,20 @@ class Kernel(Library):
 
 
 @contextlib.contextmanager
-def recording() -> Iterator[Dict]:
+def recording(stream: Optional[int] = None) -> Iterator[Dict]:
     """The kernel launches of this thread inside the block, as ``{(kernel,
     argument shapes): calls}`` (a CUDA graph's capture, whose launches
-    happen at its replays), kept out of the kernels' counts."""
+    happen at its replays), kept out of the kernels' counts; with
+    ``stream`` (a ``cuda_stream`` handle) also those of other threads on
+    that stream."""
     _RECORDING.calls = calls = collections.Counter()
+    if stream is not None:
+        _BY_STREAM[stream] = calls
     try:
         yield calls
     finally:
         _RECORDING.calls = None
+        _BY_STREAM.pop(stream, None)
 
 
 def replayed(calls: Dict) -> None:

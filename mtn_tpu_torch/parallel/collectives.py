@@ -33,7 +33,9 @@ every rank holds the same bits after it.
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional
+import contextlib
+import threading
+from typing import Any, Iterator, List, NamedTuple, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -114,6 +116,56 @@ def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return all_gather(x, axis, dim=0)
 
 
+class Draws:
+    """The generators of one forward's dropout masks, on the activations'
+    device: ``main`` for every site outside the decoder layers, and each
+    decoder layer its own (``layers``) with a twin seeded alike
+    (``recompute``), from which a recomputation of the layer (remat)
+    draws the forward's masks again. Each mask is a function of its
+    generator's seed and of the draws before it from that generator, so
+    the forward and a recomputation need no saved RNG state, and a CUDA
+    graph that registers the generators (:meth:`generators`) draws, at
+    each replay, from the seeds they hold then."""
+
+    def __init__(self, device, layers: int):
+        new = lambda: torch.Generator(device=device)
+        self.main = new()
+        self.layers = [new() for _ in range(layers)]
+        self.recompute = [new() for _ in range(layers)]
+
+    def generators(self) -> List[torch.Generator]:
+        return [self.main, *self.layers, *self.recompute]
+
+    def seed(self, main: int, layers: List[int]) -> None:
+        """Seed ``main``, and each layer and its twin alike."""
+        self.main.manual_seed(main)
+        for g, twin, s in zip(self.layers, self.recompute, layers):
+            g.manual_seed(s)
+            twin.manual_seed(s)
+
+
+_DRAWING = threading.local()
+
+
+@contextlib.contextmanager
+def drawing(source: Union[Draws, torch.Generator, None]) -> Iterator[None]:
+    """Dropout in this thread draws from ``source`` inside the block: a
+    :class:`Draws` (its ``main``; the decoder layers take their own), a
+    generator, or None (torch's default generator)."""
+    before = getattr(_DRAWING, "source", None)
+    _DRAWING.source = source
+    try:
+        yield
+    finally:
+        _DRAWING.source = before
+
+
+def active_draws() -> Optional[Draws]:
+    """The :class:`Draws` that :func:`drawing` made current, if any."""
+    source = getattr(_DRAWING, "source", None)
+    return source if isinstance(source, Draws) else None
+
+
 def sharded_dropout(x: torch.Tensor, rate: float, training: bool,
                     axis: Optional[Axis] = None, dim: int = -1,
                     data: Optional[Axis] = None,
@@ -138,7 +190,10 @@ def sharded_dropout(x: torch.Tensor, rate: float, training: bool,
             n = shape[d]
             shape[d] = n * ax.size
             cuts.append((d, ax.rank * n, n))
-    noise = x.new_empty(shape).bernoulli_(1 - rate).div_(1 - rate)
+    source = getattr(_DRAWING, "source", None)
+    gen = source.main if isinstance(source, Draws) else source
+    noise = x.new_empty(shape).bernoulli_(1 - rate,
+                                          generator=gen).div_(1 - rate)
     for d, start, n in cuts:
         noise = noise.narrow(d, start, n)
     return x * noise

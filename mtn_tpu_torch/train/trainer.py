@@ -19,10 +19,24 @@ under ``model.eval()`` and ``torch.no_grad()`` (dropout off, so the
 kernels run where selected) of the model as last loaded.
 
 Dropout randomness is a pure function of ``(seed, step[, microbatch])``,
-as ``jax.random.fold_in(base_rng, step)`` is: each step seeds torch's
-generators, inside a forked RNG state, from those numbers, so a run
-resumed at a step draws what an uninterrupted run draws there. (JAX's own
-bits cannot be reproduced.)
+as ``jax.random.fold_in(base_rng, step)`` is: the masks of each
+microbatch come from the trainer's own generators
+(``collectives.Draws``: one for the sites outside the decoder layers,
+one per decoder layer and its twin for a remat recomputation), seeded
+before the step from one ``SeedSequence`` of those numbers, so a run
+resumed at a step draws what an uninterrupted run draws there, and
+torch's global generators play no part. (JAX's own bits cannot be
+reproduced.)
+
+Two ways to run a step, with the same bits. On a CUDA device without a
+mesh and without ``nan_checks`` (:meth:`Trainer.graphed`), each train,
+accumulation and eval step whose shape has come before replays one
+captured CUDA graph (:mod:`mtn_tpu_torch.train.graphs`, the counterpart
+of JAX's jitted ``train_step``, ``accum_step`` and ``eval_step``);
+elsewhere, and for a shape's first step, the same step body runs
+eagerly. The host's part of a step stays outside the body: seeding the
+generators and setting Adam's device count before it (``_begin``),
+advancing the host's counts after it (``_end``).
 
 Under a mesh (``shardings``, :mod:`mtn_tpu_torch.parallel`): the model
 holds this rank's slabs (``Shardings.shard_model``) and so do the masters
@@ -46,7 +60,6 @@ the host never waits on the step it has just launched.
 from __future__ import annotations
 
 import collections
-import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -58,8 +71,9 @@ import torch.distributed as dist
 from mtn_tpu_torch.config import ModelConfig, TrainConfig
 from mtn_tpu_torch.data.vocab import BLANK, SPECIALS
 from mtn_tpu_torch.models.mtn import MTN
-from mtn_tpu_torch.parallel.collectives import all_reduce
+from mtn_tpu_torch.parallel.collectives import Draws, all_reduce, drawing
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
+from mtn_tpu_torch.train.graphs import StepGraphs
 from mtn_tpu_torch.train.loss import mtn_loss
 from mtn_tpu_torch.train.schedule import AdamState, NoamAdam
 from mtn_tpu_torch.utils.profiling import check_finite, step_annotation
@@ -128,10 +142,10 @@ def opt_state_by_name(state: TrainState) -> dict:
             "nu": dict(zip(names, o.nu))}
 
 
-def step_seed(*key: int) -> int:
-    """A 64-bit seed that is a pure function of ``key``."""
-    return int(np.random.SeedSequence(list(key)).generate_state(
-        1, np.uint64)[0])
+def step_seeds(key, n: int) -> List[int]:
+    """``n`` 64-bit seeds that are a pure function of ``key``."""
+    return [int(s) for s in np.random.SeedSequence(list(key)).generate_state(
+        n, np.uint64)]
 
 
 class _Pending:
@@ -159,7 +173,8 @@ class _Pending:
 
 class Trainer:
     """``nan_checks``: before each update, raise ``FloatingPointError`` if
-    the loss or a gradient is not finite (one host sync per step)."""
+    the loss or a gradient is not finite (one host sync per step; the
+    steps then run eagerly, see :meth:`graphed`)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device, pad: int = SPECIALS[BLANK],
@@ -182,6 +197,18 @@ class Trainer:
                                   device=self.device) for p in self.params]
         self.optimizer = NoamAdam(model_cfg.d_model, train_cfg.warmup_steps,
                                   grad_clip=train_cfg.grad_clip)
+        self._draws: List[Draws] = []   # by microbatch
+        self.graphs = StepGraphs()
+        self._key = (repr(model_cfg), train_cfg.grad_clip)
+
+    def graphed(self, t: Tensor) -> bool:
+        """Whether steps on tensors like ``t`` run as captured programs:
+        on a CUDA device, without a mesh axis (a mesh's collectives go over
+        gloo, which a graph cannot hold) and without ``nan_checks``, whose
+        check reads the host between the backward and the update (a debug
+        mode, as JAX's ``jax_debug_nans`` is)."""
+        return (t.is_cuda and self.data is None and self.layout is None
+                and not self.nan_checks)
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed: int) -> TrainState:
@@ -217,6 +244,9 @@ class Trainer:
             self.optimizer.init(list(params.values()))))
         if opt_state is not None:
             load_opt_state(state, opt_state)
+        # the programs of an earlier state (which shares this one's f32
+        # model parameters) would update its tensors: drop them
+        self.graphs.clear()
         return state
 
     def load(self, params: Dict[str, Tensor]) -> None:
@@ -247,13 +277,17 @@ class Trainer:
                         self.pad, self.train_cfg.label_smoothing,
                         self.train_cfg.loss_l, norm=norm)
 
-    @contextlib.contextmanager
-    def _rng(self, *key: int):
-        """Seed torch's generators from ``key`` inside a forked state."""
-        devices = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(step_seed(*key))
-            yield
+    def draws(self, i: int) -> Draws:
+        """The dropout generators of microbatch ``i``."""
+        while len(self._draws) <= i:
+            self._draws.append(Draws(self.device, self.model_cfg.nb_blocks))
+        return self._draws[i]
+
+    def _seed(self, keys, first: int = 0) -> None:
+        """Seed microbatch ``first + i``'s generators from ``keys[i]``."""
+        for i, key in enumerate(keys, first):
+            seeds = step_seeds(key, 1 + self.model_cfg.nb_blocks)
+            self.draws(i).seed(seeds[0], seeds[1:])
 
     # -- data parallelism -----------------------------------------------------
     def _norm(self, batches: List[DeviceBatch]) -> Tuple[Tensor, Tensor]:
@@ -305,11 +339,13 @@ class Trainer:
         return torch.sqrt(total)
 
     def loss_and_grads(self, batch: DeviceBatch, key, norm=None,
-                       accumulate: bool = False):
-        """Forward and backward in train mode; returns (loss, metrics,
-        ``self.grads``): the f32 gradients in parameter order, set to this
-        batch's, or with ``accumulate`` added to what they held. The next
-        call reuses the buffers."""
+                       accumulate: bool = False, micro: int = 0):
+        """Forward and backward in train mode, dropout drawn from
+        microbatch ``micro``'s generators, first seeded from ``key`` unless
+        it is None; returns (loss, metrics, ``self.grads``): the f32
+        gradients in parameter order, set to this batch's, or with
+        ``accumulate`` added to what they held. The next call reuses the
+        buffers."""
         self.model.train()
         own = [g for p, g in zip(self.params, self.grads)
                if p.dtype == torch.float32]
@@ -317,7 +353,9 @@ class Trainer:
             torch._foreach_zero_(own)
         for p, g in zip(self.params, self.grads):
             p.grad = g if p.dtype == torch.float32 else None
-        with self._rng(*key):
+        if key is not None:
+            self._seed([key], micro)
+        with drawing(self.draws(micro)):
             loss, metrics = self.loss_fn(batch, norm)
             loss.backward()
         dst, src = [], []
@@ -345,35 +383,46 @@ class Trainer:
         if self.layout is not None and self.optimizer.grad_clip > 0:
             norm = self._grad_norm(grads)
         with torch.no_grad():
-            self.optimizer.update(list(state.params.values()), grads,
-                                  state.opt_state, norm=norm)
-        state.step += 1
+            self.optimizer.apply(list(state.params.values()), grads,
+                                 state.opt_state, norm=norm)
 
     # -- steps --------------------------------------------------------------
-    def train_step(self, state: TrainState, batch: DeviceBatch,
-                   base_seed: int) -> Tuple[TrainState, dict]:
-        """One update; ``state`` is updated in place and returned."""
+    # A step is ``_begin`` (the host's part before it), a body (the device
+    # work, eager or one graph's replay) and ``_end``.
+    def _begin(self, state: TrainState, keys) -> None:
+        self._seed(keys)
+        self.optimizer.prepare(state.opt_state)
+
+    @staticmethod
+    def _end(state: TrainState) -> None:
+        state.opt_state.count += 1
+        state.step += 1
+
+    def _run(self, key: tuple, batch, body: Callable[[object], dict],
+             t: Tensor, generators=()) -> dict:
+        """``body(batch)``, through the step's program set where one is
+        kept or admitted."""
+        if not self.graphed(t):
+            return body(batch)
+        return self.graphs.step(key, batch, body, generators)
+
+    def _train_body(self, state: TrainState, batch: DeviceBatch) -> dict:
         self.load(state.params)
         norm = self._norm([batch]) if self.data is not None else None
-        loss, metrics, grads = self.loss_and_grads(
-            batch, (base_seed, state.step), norm=norm)
+        loss, metrics, grads = self.loss_and_grads(batch, None, norm=norm)
         if self.data is not None:
             loss, metrics = self._global(loss, norm[0])
         self._apply(state, loss, grads)
-        return state, metrics
+        return metrics
 
-    def train_step_accum(self, state: TrainState,
-                         micro: List[DeviceBatch],
-                         base_seed: int) -> Tuple[TrainState, dict]:
-        """One update from a list of microbatches (``accumulated``);
-        gradients are summed in f32."""
+    def _accum_body(self, state: TrainState,
+                    micro: List[DeviceBatch]) -> dict:
         self.load(state.params)
         ntok, ae_ntok = self._norm(micro)
         total = 0.0
         for i, b in enumerate(micro):
             loss, _, grads = self.loss_and_grads(
-                b, (base_seed, state.step, i), norm=(ntok, ae_ntok),
-                accumulate=i > 0)
+                b, None, norm=(ntok, ae_ntok), accumulate=i > 0, micro=i)
             total = total + loss
         if self.data is not None:
             total, metrics = self._global(total, ntok)
@@ -381,10 +430,9 @@ class Trainer:
             metrics = {"ntokens": ntok, "loss": total,
                        "loss_x_ntok": total * ntok}
         self._apply(state, total, grads)
-        return state, metrics
+        return metrics
 
-    def eval_step(self, batch: DeviceBatch) -> dict:
-        """The loss of the model as last loaded (``load``)."""
+    def _eval_body(self, batch: DeviceBatch) -> dict:
         self.model.eval()
         with torch.no_grad():
             if self.data is None:
@@ -392,6 +440,37 @@ class Trainer:
             norm = self._norm([batch])
             loss, _ = self.loss_fn(batch, norm)
             return self._global(loss, norm[0])[1]
+
+    def train_step(self, state: TrainState, batch: DeviceBatch,
+                   base_seed: int) -> Tuple[TrainState, dict]:
+        """One update; ``state`` is updated in place and returned."""
+        self._begin(state, [(base_seed, state.step)])
+        metrics = self._run(
+            ("train", id(state), self._key), batch,
+            lambda b: self._train_body(state, b), batch.query,
+            self.draws(0).generators())
+        self._end(state)
+        return state, metrics
+
+    def train_step_accum(self, state: TrainState,
+                         micro: List[DeviceBatch],
+                         base_seed: int) -> Tuple[TrainState, dict]:
+        """One update from a list of microbatches (``accumulated``);
+        gradients are summed in f32."""
+        self._begin(state, [(base_seed, state.step, i)
+                            for i in range(len(micro))])
+        metrics = self._run(
+            ("accum", id(state), self._key, len(micro)),
+            micro, lambda m: self._accum_body(state, m), micro[0].query,
+            [g for i in range(len(micro))
+             for g in self.draws(i).generators()])
+        self._end(state)
+        return state, metrics
+
+    def eval_step(self, batch: DeviceBatch) -> dict:
+        """The loss of the model as last loaded (``load``)."""
+        return self._run(("eval", self._key), batch,
+                         self._eval_body, batch.query)
 
     # -- epoch loop ---------------------------------------------------------
     def run_epoch(self, state: TrainState, batches,

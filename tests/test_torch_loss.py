@@ -11,7 +11,7 @@ import torch
 from mtn_tpu.train import loss as jloss
 from mtn_tpu.train.schedule import make_optimizer, noam_schedule as jnoam
 from mtn_tpu_torch.train.loss import label_smoothed_kl, mtn_loss
-from mtn_tpu_torch.train.schedule import NoamAdam, noam_schedule
+from mtn_tpu_torch.train.schedule import NoamAdam, noam_rate
 from mtn_tpu_torch.weights import (from_flax, opt_state_from_optax,
                                    opt_state_to_optax, optax_adam_fields)
 from tests.torch_parity import one_thread  # noqa: F401
@@ -91,7 +91,7 @@ def test_noam_rate_matches_optax(count):
     """Update number ``count`` (from 0) takes reference step count + 1:
     steps 1 and 2, the warmup step, 10 × warmup, and past it."""
     want = float(jnoam(512, 100)(count))
-    got = float(noam_schedule(512, 100)(count))
+    got = float(noam_rate(torch.tensor(count + 1.0), 512, 100))
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
@@ -122,7 +122,9 @@ def test_adam_matches_optax_for_five_steps(clip):
     st = adam.init(tp)
     for g in grads:
         gd = from_flax(g)
-        adam.update(tp, [gd[n].clone() for n in names], st)
+        adam.prepare(st)
+        adam.apply(tp, [gd[n].clone() for n in names], st)
+        st.count += 1
     want = from_flax(jax.tree.map(np.asarray, jp))
     for n, t in zip(names, tp):
         np.testing.assert_allclose(t.numpy(), want[n].numpy(), rtol=1e-6,

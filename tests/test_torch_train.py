@@ -28,6 +28,7 @@ from mtn_tpu_torch.data.dataset import load
 from mtn_tpu_torch.data.pipeline import BatchIterator, shuffled
 from mtn_tpu_torch.ops import attention_kernel as ak
 from mtn_tpu_torch.ops import ffn_kernel as fk
+from mtn_tpu_torch.parallel.collectives import drawing
 from mtn_tpu_torch.train.batch import accumulated, blank_like
 from mtn_tpu_torch.train.trainer import Trainer
 from mtn_tpu_torch.weights import (from_flax, load_checkpoint,
@@ -274,7 +275,8 @@ def test_bf16_gradients_land_in_the_f32_buffers():
     tdb = both_batches(_fields(seed=3))[1]
     assert {p.dtype for p in tr.params} == {torch.bfloat16, torch.float32}
     tr.model.train()
-    with tr._rng(0):
+    tr._seed([(0,)])
+    with drawing(tr.draws(0)):
         tr.loss_fn(tdb)[0].backward()
     want = [p.grad.float() for p in tr.params]
     for p in tr.params:
