@@ -714,9 +714,11 @@ def device_groups(torch, prof):
 
 def profile_decode(torch, prefix, test_set, fea_path):
     """One warm beam-decoded turn batch of the main path (bf16, both
-    kernels) under torch.profiler: host wall time, device busy time by
-    kernel group, the hand-written kernels' device time per wrapper call,
-    and the device's idle share. Returns a dict."""
+    kernels), one graph launch: host wall time, the device's time on it
+    (CUDA events) and idle share (:func:`event_batches`); then the same
+    batch through the eager loop under torch.profiler: device time by
+    kernel group and the hand-written kernels' device time per wrapper
+    call. Returns a dict."""
     from mtn_tpu_torch.config import DecodeConfig, config_from_dict
     from mtn_tpu_torch.data.batching import make_batch, make_batch_indices
     from mtn_tpu_torch.data.dataset import load
@@ -743,27 +745,29 @@ def profile_decode(torch, prefix, test_set, fea_path):
     dec = BeamDecoder(model, DecodeConfig(maxlen=30, beam=5, nbest=5,
                                           penalty=1.0))
     dec.beam_batch_raw(db)   # the shape's first batch runs eagerly,
-    dec.beam_batch_raw(db)   # its second captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    raw = dec.beam_batch_raw(db)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    raw = dec.beam_batch_raw(db)   # its second captures
+    dec.beam_results(raw, db.valid)
+    timed = event_batches(torch, ak, fk, dec, [db], fetch=False)
+    # kernel time by group from the eager twin of the same batch: the
+    # profiler does not run over a graph with conditional nodes
     ak.KERNEL.launches = fk.KERNEL.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        dec.beam_batch_raw(db)
+        eager_twin(dec).beam_batch_raw(db)
         torch.cuda.synchronize()
     calls = {"attention (csrc)": ak.KERNEL.launches,
              "ffn (csrc)": fk.KERNEL.launches}
     groups, launches, top = device_groups(torch, prof)
-    busy = sum(groups.values())
     measured = launches > 0
-    return {"wall_ms": wall * 1e3, "steps": raw.n_steps,
-            "device_busy_ms": busy if measured else "not measured",
-            "idle_share": (1 - busy / (wall * 1e3)) if measured
+    return {"wall_ms": timed["wall_ms"], "steps": int(raw.n_steps),
+            "device_ms": timed["device_ms"],
+            "idle_share": timed["idle_share"],
+            "graph_launches": timed["graph_launches"],
+            "kernel_launches_counted": timed["kernel_launches_counted"],
+            "eager_device_ms": sum(groups.values()) if measured
             else "not measured",
-            "device_ms_by_group": groups, "device_launches": launches,
+            "eager_device_ms_by_group": groups,
+            "eager_device_launches": launches,
             "kernel_calls": calls,
             "device_us_per_call": {
                 g: groups.get(g, 0.0) * 1e3 / n if measured and n
@@ -771,11 +775,70 @@ def profile_decode(torch, prefix, test_set, fea_path):
             "top_kernels": top}
 
 
-# -- [graphs]: each decode batch as captured device programs -----------------
-GRAPH_CHUNKS = (1, 2, 4, 8, 30)   # the sweep of k, maxlen last
+def event_batches(torch, ak, fk, dec, batches, depth: int = 0,
+                  fetch: bool = True, rounds: int = 2) -> dict:
+    """``dec``'s graphed beam batches timed without the profiler, which
+    must not run over a graph with conditional nodes: host wall per
+    round (ending in a synchronize), the batches launched ``depth`` ahead
+    of their fetch (all of them with 0; none fetched without ``fetch``),
+    each launch bracketed by CUDA events on the stream, whose spans sum
+    to the device's time on the batches (``device_ms``); the idle share,
+    graph launches and the kernels' counts of the last round."""
+    walls, busy = [], []
+    depth = depth or len(batches)
+    for _ in range(rounds):
+        before = (ak.KERNEL.launches, fk.KERNEL.launches)
+        n = graph_loop_launches()
+        spans, pending = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for db in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            raw = dec.beam_batch_raw(db)
+            end.record()
+            spans.append((start, end))
+            pending.append((raw, db.valid))
+            if fetch and len(pending) >= depth:
+                dec.beam_results(*pending.pop(0))
+        while fetch and pending:
+            dec.beam_results(*pending.pop(0))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        busy.append(sum(a.elapsed_time(b) for a, b in spans))
+    wall, device = sum(walls) / rounds, sum(busy) / rounds
+    return dict(wall_ms=wall, walls_ms=walls, device_ms=device,
+                idle_share=1 - device / wall,
+                graph_launches=graph_loop_launches() - n,
+                kernel_launches_counted={
+                    "attention": ak.KERNEL.launches - before[0],
+                    "ffn": fk.KERNEL.launches - before[1]})
+
+
+def graph_loop_launches() -> int:
+    from mtn_tpu_torch.ops import graph_loop
+    return graph_loop.LAUNCHES
+
+
+# -- [graphs]: each decode batch as one device program ------------------------
+GRAPH_CHUNKS = (1, 2, 4)   # the sweep of k under the WHILE node
 GRAPH_DECODE = dict(maxlen=30, beam=5, nbest=5, penalty=1.0)
 GRAPH_SAMPLE = dict(maxlen=30, temperature=1.0, top_k=50, top_p=0.9,
                     sample_seed=1)
+IN_FLIGHT = 8              # cli.generate's MAX_IN_FLIGHT
+
+
+@contextlib.contextmanager
+def no_host_reads(torch):
+    """Raise at any operation that waits for the device inside the block
+    (``torch.cuda.set_sync_debug_mode("error")``): a read of a device
+    value, a copy to or from pageable memory, a synchronize."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def flagship_batches(corpus: dict, rows: int):
@@ -814,36 +877,48 @@ def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
     graphed decoder (three times: a shape's first batch runs eagerly, its
     second captures), compared bitwise: beam with early stop on and off
     (n-best tokens, scores, lengths, step counts), greedy and sampled
-    tokens, rank log-probs."""
+    tokens, rank log-probs. The third run's calls, on sets built before
+    it, run under :func:`no_host_reads` and must each make one graph
+    launch."""
     from mtn_tpu_torch.config import DecodeConfig
     from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.ops import graph_loop
     out = {}
 
     def compare(name, dec, fn, same, batches=dbs):
-        twin, secs = eager_twin(dec), []
+        twin, secs, launches = eager_twin(dec), [], []
 
-        def timed(d):
+        def timed(d, watched=False):
             t0 = time.perf_counter()
-            res = [fn(d, db) for db in batches]
+            res = []
+            for db in batches:
+                n = graph_loop.LAUNCHES
+                with (no_host_reads(torch) if watched
+                      else contextlib.nullcontext()):
+                    res.append(fn(d, db))
+                launches.append(graph_loop.LAUNCHES - n)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             return res
         eager, e_n, _ = run_path(torch, ak, fk, lambda: timed(twin))
-        runs = [run_path(torch, ak, fk, lambda: timed(dec))
-                for _ in range(3)]
+        runs = [run_path(torch, ak, fk, lambda i=i: timed(dec, i == 2))
+                for i in range(3)]
         ps = list(dec.graphs.sets.values())
+        watched = launches[-len(batches):]
         out[name] = dict(
             bitwise=all(same(a, r) for run, _, _ in runs
                         for a, r in zip(eager, run)),
             launches_eager=e_n,
             launches_graphed=[n for _, n, _ in runs], eager_s=secs[0],
             graphed_s=secs[1:], capture_s=[p.capture_s() for p in ps],
+            host_reads_before_fetch=0, graph_launches_per_batch=watched,
+            one_launch=watched == [1] * len(batches),
             reads=sum(p.reads for p in ps), replays=sum(p.replays for p in ps),
             runner=runner_counts([dec.graphs]))
         return eager
 
     def same_raw(a, b):
-        return a.n_steps == b.n_steps and all(
+        return int(a.n_steps) == int(b.n_steps) and all(
             torch.equal(x, y) for x, y in zip(
                 (a.comp_scores, a.comp_buf, a.comp_len),
                 (b.comp_scores, b.comp_buf, b.comp_len)))
@@ -852,7 +927,7 @@ def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
         raws = compare(f"beam_early_stop_{'on' if es else 'off'}", dec,
                        lambda d, db: d.beam_batch_raw(db), same_raw)
         out[f"beam_early_stop_{'on' if es else 'off'}"]["n_steps"] = [
-            r.n_steps for r in raws]
+            int(r.n_steps) for r in raws]
         del dec
     compare("greedy", BeamDecoder(model, DecodeConfig(**GRAPH_SAMPLE)),
             lambda d, db: d.greedy_tokens(db), torch.equal)
@@ -862,7 +937,7 @@ def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
     compare("rank", dec, lambda d, db: d.rank_batch_raw(
         db, cands, cand_bucket=N_OPTIONS)[0], torch.equal, [rank_db])
     del dec
-    out["ok"] = all(v["bitwise"] for v in out.values())
+    out["ok"] = all(v["bitwise"] and v["one_launch"] for v in out.values())
     return out
 
 
@@ -962,9 +1037,10 @@ def graphs_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     torch.profiler (both kernels inside the replays, the profiler's
     count of each equal to the kernels' own); the sweep of the chunk
     length k: host wall per warm beam batch, device busy, idle share,
-    device launches, host reads and replays, capture seconds per program
-    and the bytes the program set holds (``memory_reserved`` after
-    ``empty_cache``, its capture against before it); then
+    device launches, host reads, graph launches and program runs,
+    capture seconds per program and the bytes the program set holds
+    (``memory_reserved`` after ``empty_cache``, its capture against
+    before it); ``IN_FLIGHT`` batches in flight against one; then
     ``cli.generate --uniform-shapes 0`` eager and graphed
     (:func:`shape_traffic`)."""
     import numpy as np
@@ -991,36 +1067,57 @@ def graphs_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
         del model, dbs
         torch.cuda.empty_cache()
     out["traffic"] = shape_traffic(torch, corpus, root)
-    seen = out["profile"]["graphed"]["kernel_launches_seen"]
+    seen = out["profile"]["graphed_fixed"]["kernel_launches_seen"]
     out["kernels_in_replays"] = (isinstance(seen, dict)
                                  and min(seen.values()) > 0)
-    profiled = [out["profile"]["eager"], out["profile"]["graphed"],
-                out["sweep_eager"], *out["sweep"]]
+    profiled = [out["profile"]["eager"], out["profile"]["graphed_fixed"],
+                out["sweep_eager"]]
     out["counts_match_profiler"] = all(p["counts_match"] for p in profiled)
+    # a WHILE loop's launches (each pass's record times the passes) equal
+    # the eager loop's, whose the profiler holds (k = 1: no masked step)
+    # (the last run: the runs before it hold the shape's eager batch and
+    # the capture's warm-up)
+    out["loop_counts_equal_eager"] = all(
+        row["launches_graphed"][-1] == row["launches_eager"]
+        for dtype in ("bfloat16", "float32")
+        for row in out[dtype].values() if isinstance(row, dict)) and (
+        graphs.CHUNK != 1 or out["sweep"][0]["kernel_launches_counted"]
+        == out["sweep_eager"]["kernel_launches_counted"])
     out["ok"] = bool(out["bfloat16"]["ok"] and out["float32"]["ok"]
                      and out["kernels_in_replays"]
                      and out["counts_match_profiler"]
+                     and out["loop_counts_equal_eager"]
                      and out["traffic"]["bitwise"])
     return out
 
 
 def graph_timing(torch, ak, fk, graphs, model, dbs) -> dict:
-    """One warm beam batch eager and graphed under the profiler, and the
-    sweep of k over ``dbs`` (see :func:`graphs_phase`)."""
+    """One warm beam batch eager and graphed under the profiler, the
+    sweep of k over ``dbs`` and ``IN_FLIGHT`` batches in flight against
+    one (see :func:`graphs_phase`)."""
     from mtn_tpu_torch.config import DecodeConfig
     from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.ops import _build
     out = {}
-    # one warm batch, eager and graphed, under the profiler (the shape's
-    # first batch runs eagerly, its second captures)
+    # one warm batch: eager under the profiler, graphed timed with CUDA
+    # events (the profiler must not run over a graph with conditional
+    # nodes), and the fixed loop's graph (early stop off: no conditional
+    # node) under the profiler, its kernels counted inside the launch
+    # (the shape's first batch runs eagerly, its second captures)
     dec = BeamDecoder(model, DecodeConfig(**GRAPH_DECODE))
     twin = eager_twin(dec)
-    dec.beam_batch_raw(dbs[0])
-    dec.beam_batch_raw(dbs[0])
+    fixed = BeamDecoder(model, DecodeConfig(early_stop=False,
+                                            **GRAPH_DECODE))
+    for d in (dec, dec, fixed, fixed):
+        d.beam_batch_raw(dbs[0])
+    torch.cuda.synchronize()
     out["profile"] = {
         "eager": profiled_batches(torch, ak, fk,
                                   lambda: twin.beam_batch_raw(dbs[0])),
-        "graphed": profiled_batches(torch, ak, fk,
-                                    lambda: dec.beam_batch_raw(dbs[0]))}
+        "graphed": event_batches(torch, ak, fk, dec, dbs[:1], fetch=False),
+        "graphed_fixed": profiled_batches(
+            torch, ak, fk, lambda: fixed.beam_batch_raw(dbs[0]))}
+    del fixed
     # the sweep of k over both batches: wall per warm batch
     sweep, chunk = [], graphs.CHUNK
     try:
@@ -1043,12 +1140,13 @@ def graph_timing(torch, ak, fk, graphs, model, dbs) -> dict:
             row = dict(k=k, capture_s=ps.capture_s(),
                        pool_bytes=torch.cuda.memory_reserved() - reserved,
                        live_bytes=torch.cuda.memory_allocated() - allocated)
-            ps.reads = ps.replays = 0
-            prof = profiled_batches(
-                torch, ak, fk, lambda: [dec.beam_batch_raw(db) for db in dbs])
-            row.update(prof, wall_ms_per_batch=prof["wall_ms"] / len(dbs),
-                       reads_per_batch=ps.reads / (3 * len(dbs)),
-                       replays_per_batch=ps.replays / (3 * len(dbs)))
+            ps.reads = ps.replays = ps.launches = 0
+            timed = event_batches(torch, ak, fk, dec, dbs, fetch=False)
+            _build.settle()
+            row.update(timed, wall_ms_per_batch=timed["wall_ms"] / len(dbs),
+                       reads_per_batch=ps.reads / (2 * len(dbs)),
+                       launches_per_batch=ps.launches / (2 * len(dbs)),
+                       program_runs_per_batch=ps.replays / (2 * len(dbs)))
             sweep.append(row)
             del ps   # the next k's bytes count its set alone
     finally:
@@ -1058,6 +1156,73 @@ def graph_timing(torch, ak, fk, graphs, model, dbs) -> dict:
     eager["wall_ms_per_batch"] = eager["wall_ms"] / len(dbs)
     out["sweep"] = sweep
     out["sweep_eager"] = eager
+    # IN_FLIGHT batches launched before the first is fetched, against
+    # each fetched before the next is launched (the graphed sets of k =
+    # graphs.CHUNK), in turns
+    dec.graphs = graphs.GraphRunner()
+    dec.beam_batch_raw(dbs[0])
+    dec.beam_batch_raw(dbs[0])
+    torch.cuda.synchronize()
+    batches = [dbs[i % len(dbs)] for i in range(IN_FLIGHT)]
+    runs = {IN_FLIGHT: [], 1: []}
+    for depth in (IN_FLIGHT, 1, 1, IN_FLIGHT):
+        runs[depth].append(event_batches(torch, ak, fk, dec, batches,
+                                         depth=depth, rounds=1))
+    out["in_flight"] = {str(depth): dict(
+        wall_ms_per_batch=[r["wall_ms"] / IN_FLIGHT for r in rs],
+        device_ms_per_batch=[r["device_ms"] / IN_FLIGHT for r in rs],
+        idle_share=[r["idle_share"] for r in rs],
+        graph_launches=[r["graph_launches"] for r in rs])
+        for depth, rs in runs.items()}
+    return out
+
+
+def in_flight_main(torch, corpus: dict, root: str) -> dict:
+    """The main path (``cli.generate`` at the flagship width, bf16 beam,
+    both kernels) at 8 turns a batch, 8 batches of one shape, with
+    ``MAX_IN_FLIGHT`` = ``IN_FLIGHT``, then 1, then ``IN_FLIGHT`` again:
+    the result JSON and the n-best log (``--verbose 1``'s QS and HYP
+    lines) identical, and each run's responses/sec after loading (the
+    stats file: the shape's first batch, run eagerly, and the capture
+    included)."""
+    import logging
+    from mtn_tpu_torch.cli import generate
+    out, texts, logs = {}, [], []
+    depth0 = generate.MAX_IN_FLIGHT
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith(("QS:", "HYP[")):
+                logs[-1].append(msg)
+    keep = Keep()
+    logging.getLogger(generate.__name__).addHandler(keep)
+    try:
+        for i, depth in enumerate((IN_FLIGHT, 1, IN_FLIGHT)):
+            generate.MAX_IN_FLIGHT = depth
+            path = os.path.join(root, f"in_flight_{i}.json")
+            stats_path = os.path.join(root, f"in_flight_{i}_stats.json")
+            logs.append([])
+            rc = generate.main(generate_argv(
+                corpus, corpus["prefix"], path, *BEAM_FLAGS, "--turn-batch",
+                "8", "--stats-output", stats_path, "--verbose", "1"))
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"generate (in flight {depth}) "
+                                     f"exited {rc}")
+            with open(path) as f:
+                texts.append(f.read())
+            with open(stats_path) as f:
+                stats = json.load(f)
+            out.setdefault(str(depth), []).append(dict(
+                responses_per_sec=stats["responses_per_sec"],
+                seconds=stats["seconds"], batches=stats["batches"]))
+    finally:
+        generate.MAX_IN_FLIGHT = depth0
+        logging.getLogger(generate.__name__).removeHandler(keep)
+    out["json_identical"] = texts[0] == texts[1] == texts[2]
+    out["log_identical"] = bool(logs[0]) and logs[0] == logs[1] == logs[2]
+    out["ok"] = out["json_identical"] and out["log_identical"]
     return out
 
 
@@ -1580,6 +1745,34 @@ def concurrent_respond(base: str, bodies) -> dict:
                 wall_s=wall, requests_per_sec=len(bodies) / wall)
 
 
+def async_in_flight(torch, session, bodies, rounds: int = 4) -> dict:
+    """``AsyncServer`` over ``session`` with ``max_in_flight`` 2, 1, 1, 2:
+    the bodies ``rounds`` times, all submitted at once, packed into
+    batches of ``turn_batch`` (a long ``max_wait_ms`` makes the packing
+    the same in every run), the answers of every run bitwise equal;
+    requests/sec of each (submit to the last answer)."""
+    from mtn_tpu_torch.serve import AsyncServer
+    from mtn_tpu_torch.serve_http import parse_request
+    reqs = [parse_request(dict(b, nbest=5)) for b in bodies] * rounds
+    out, answers = {}, []
+    for depth in (2, 1, 1, 2):
+        server = AsyncServer(session, max_in_flight=depth,
+                             max_wait_ms=1000.0)
+        try:
+            t0 = time.perf_counter()
+            futs = [server.submit(r) for r in reqs]
+            got = [f.result(600).nbest for f in futs]
+            wall = time.perf_counter() - t0
+        finally:
+            server.stop()
+        answers.append(got)
+        out.setdefault(str(depth), []).append(dict(
+            requests=len(reqs), batches=server.launches, wall_s=wall,
+            requests_per_sec=len(reqs) / wall))
+    out["bitwise"] = all(a == answers[0] for a in answers)
+    return out
+
+
 def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     """An in-process ``serve_http.start_server`` on 127.0.0.1:0 over a
     bf16 beam session (:func:`serve_session`: beam 5, maxlen 30, both
@@ -1588,8 +1781,8 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     session's own respond_batch of the same request, bitwise; 32 requests
     from 8 threads (requests/sec, /stats latency, batch launches, the
     decoder's batches, shapes, captures and eager batches; for bf16 the
-    same load again through the eager loops and then graphed and warm);
-    /v1/rank with 100 candidates; a /v1/stream reassembled against the
+    same load again through the eager loops and then graphed and warm,
+    and :func:`async_in_flight`); /v1/rank with 100 candidates; a /v1/stream reassembled against the
     greedy decode of the same request; /admin/reload (the epoch, and the
     same answer after it); /metrics. Kernel launches are counted over the
     HTTP traffic alone: the counts are set to 0 before each request (or
@@ -1638,6 +1831,7 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
             finally:
                 del session.decoder.graphed
             out["warm_load"] = concurrent_respond(base, bodies)
+            out["async_in_flight"] = async_in_flight(torch, session, bodies)
 
         code, ranked = counted(lambda: http(base, "/v1/rank", dict(
             bodies[1], candidates=rank_candidates(corpus))))
@@ -1673,7 +1867,8 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
         out["respond_equals_session"] and out["answered"] == SERVE_REQUESTS
         and out["batch_launches"] < SERVE_REQUESTS and out["rank"]["ok"]
         and out["stream"]["equals_greedy"] and out["reload"]["same_answer"]
-        and "mtn_requests_total" in metrics)
+        and "mtn_requests_total" in metrics
+        and (quant or out["async_in_flight"]["bitwise"]))
     del session, srv
     torch.cuda.empty_cache()
     return out
@@ -1728,12 +1923,16 @@ def device_split(torch, fn) -> dict:
 
 def serve_one_process(torch, corpus: dict, bodies, dtype: str) -> dict:
     """What one process's session answers to the served mesh's traffic,
-    batched as the server batches it: the two 16-request batches (their
-    host/device split under the profiler, bf16), and in bf16 the rank
-    request (through AsyncServer, 16 rows) and the greedy stream."""
+    batched as the server batches it, through the eager loops: the two
+    16-request batches (their host/device split under the profiler,
+    bf16), and in bf16 the rank request (through AsyncServer, 16 rows)
+    and the greedy stream."""
     from mtn_tpu_torch.serve import AsyncServer
     from mtn_tpu_torch.serve_http import parse_request
     session = serve_session(corpus, dtype=dtype)
+    # the eager loops, as the mesh's ranks run them: the profiler must
+    # not run over a graph with conditional nodes
+    session.decoder.graphed = lambda t: False
     session.warmup()
     reqs = [parse_request(b) for b in bodies]
     out = {}
@@ -1991,9 +2190,9 @@ def aot_live_nbest(live, dbs, eager: bool = False):
     for db in dbs:
         raw = (live.decoder.beam_eager(db) if eager
                else live.decoder.beam_batch_raw(db))
-        steps += raw.n_steps
         out += [r.texts(live.vlist)
                 for r in live.decoder.beam_results(raw, db.valid)]
+        steps += raw.n_steps
     return out, steps
 
 
@@ -2083,6 +2282,7 @@ def aot_int8(torch, ak, fk, corpus, root, reqs, lengths) -> dict:
         batch=SERVE_TURN_BATCH, stream=False, weights_quant="int8-fp-head",
         model_overrides=overrides)
     session, load_s, resident = aot_load(torch, art)
+    session.build_programs()
     live = ServingSession.from_checkpoint(
         prefix + "_best", dcfg, model_overrides=overrides,
         weights_quant="int8-fp-head", device="cuda")
@@ -2126,16 +2326,18 @@ def op_dispatch(torch, ak, fk) -> dict:
 def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     """``mtn_tpu_torch.utils.aot``: the flagship bf16 beam artifact (both
     kernels, row buckets 1 and 16, rank 100 × 24, the stream programs)
-    exported and loaded; the [serve] phase's 32 requests decoded through
-    it against a live session at the same frozen shapes (16-row chunks,
-    bitwise, the same launches per kernel), with host ms per decode step
-    of both; then served by an in-process ``serve_http`` over the
+    exported and loaded, its program sets built at ``warmup``; the
+    [serve] phase's 32 requests decoded through it against a live
+    session at the same frozen shapes (16-row chunks, bitwise, the same
+    launches per kernel, one graph launch a chunk), with host ms per
+    chunk and per decode step of both; then served by an in-process ``serve_http`` over the
     artifact from 8 threads (each answer bitwise the live session's on
     its 1-row batch; launches, requests/sec, latency), /v1/rank,
     /v1/stream and /stats; the f32 artifact card vs CPU; an int8-fp-head
     artifact at 2 blocks."""
     import threading
 
+    from mtn_tpu_torch.ops import graph_loop
     from mtn_tpu_torch.serve import ServingSession
     from mtn_tpu_torch.serve_http import parse_request, start_server
     overrides = {"dtype": "bfloat16", "use_pallas_attention": True,
@@ -2172,8 +2374,10 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
                       SERVE_TURN_BATCH)
            for i in range(0, SERVE_REQUESTS, SERVE_TURN_BATCH)]
     walls = {"aot": [], "live": [], "live_graphed": []}
+    graph_launches = []
 
     def timed_run(kind):
+        n = graph_loop.LAUNCHES
         t0 = time.perf_counter()
         if kind == "aot":
             res = [r.nbest for r in session.respond_batch(reqs)]
@@ -2181,6 +2385,8 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
             res = aot_live_nbest(live, dbs, eager=kind == "live")
         torch.cuda.synchronize()
         walls[kind].append(time.perf_counter() - t0)
+        if kind == "aot":
+            graph_launches.append(graph_loop.LAUNCHES - n)
         return res
     got, aot_launches, aot_calls = run_path(
         torch, ak, fk, lambda: timed_run("aot"))
@@ -2192,7 +2398,12 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     timed_run("live")
     timed_run("aot")
     host_ms = {k: 1e3 * sum(v) / len(v) / steps for k, v in walls.items()}
-    out.update(bitwise_live=got == want,
+    chunk_ms = {k: 1e3 * sum(v) / len(v) / len(dbs)
+                for k, v in walls.items()}
+    out.update(bitwise_live=got == want, chunk_ms=chunk_ms,
+               graph_launches_per_chunk=[n / len(dbs)
+                                         for n in graph_launches],
+               sets=[list(k) for k in session.sets],
                graphed_bitwise_live=all(g == want for g in graphed),
                steps=steps,
                launches=aot_launches, live_launches=live_launches,
@@ -2254,6 +2465,7 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     out["ok"] = bool(
         out["bitwise_live"] and aot_launches == live_launches
         and out["graphed_bitwise_live"]
+        and out["graph_launches_per_chunk"] == [1.0] * len(graph_launches)
         and min(aot_launches.values()) > 0 and h["bitwise_live"]
         and h["aot"] is True and min(h["launches"].values()) > 0
         and h["rank_ok"] and h["stream_equals_session"]
@@ -2765,6 +2977,7 @@ def record_launches(ak, fk, fn):
     _build.REPLAY_LISTENERS.append(replayed)
     try:
         fn()
+        _build.settle()   # the graph launches still on the device
     finally:
         ak.launch, fk.launch = origs
         _build.REPLAY_LISTENERS.remove(replayed)
@@ -3913,7 +4126,9 @@ def main() -> int:
     phase_s = {}
     t_phase = t0 = time.time()
     from mtn_tpu_torch.data import native_loader
-    logs = _build.build_all([ak.KERNEL, fk.KERNEL, native_loader.LIBRARY])
+    from mtn_tpu_torch.ops import graph_loop
+    logs = _build.build_all([ak.KERNEL, fk.KERNEL, graph_loop.LIBRARY,
+                             native_loader.LIBRARY])
     print(f"[build] {time.time() - t0:.1f}s")
     for log in logs:
         for line in log.splitlines():
@@ -4002,13 +4217,6 @@ def main() -> int:
             return fail(f"[main] launches {launches} are not those of "
                         f"{stats['batches']} batches of {steps} steps in "
                         f"all with {captures} captures")
-        warm = stats["seconds"] - stats["first_batch_seconds"]
-        if stats["batches"] > 1:
-            print(f"[main] after the first batch (run eagerly; the "
-                  f"second holds the capture): "
-                  f"{(stats['turns'] - 32) / warm:.2f} responses/sec "
-                  f"({warm * 1e3 / (stats['batches'] - 1):.2f} ms a "
-                  f"batch); {card}")
         if len(answers) != N_DIALOGS or \
                 any(a == "__UNDISCLOSED__" for a in answers):
             return fail("not every undisclosed answer was replaced")
@@ -4018,6 +4226,13 @@ def main() -> int:
         print(f"[main] {stats['responses_per_sec']:.2f} responses/sec, "
               f"mean early-stop exit step {stats['mean_exit_step']} "
               "(random weights exit early: not representative)")
+        flight = in_flight_main(torch, corpus, root)
+        print(f"[main] in flight, 8 turns a batch: {json.dumps(flight)}; "
+              f"{card}")
+        if not flight["ok"]:
+            return fail("[main]: the result JSON or the n-best log with "
+                        f"{IN_FLIGHT} batches in flight differs from one "
+                        "batch at a time")
         ak.KERNEL.launches = fk.KERNEL.launches = 0
         diff = reference_check(torch, prefix, test_set, fea_path)
         print(f"[reference] flagship f32, card (kernels) vs CPU (plain): "
@@ -4032,19 +4247,25 @@ def main() -> int:
         # each decode batch as captured programs, against the eager loop
         t_phase = time.time()
         gph = graphs_phase(torch, ak, fk, corpus, root)
-        for key in ("bfloat16", "float32", "profile", "traffic"):
+        for key in ("bfloat16", "float32", "profile", "traffic",
+                    "in_flight"):
             print(f"[graphs] {key} {json.dumps(gph[key])}")
         for row in gph["sweep"] + [dict(gph["sweep_eager"], k="eager")]:
             print(f"[graphs] sweep {json.dumps(row)}")
         print(f"[graphs] chunk k = {gph['chunk']}, {gph['batches']} batches "
-              f"of 32 turns, beam 5; both kernels inside the replays: "
-              f"{gph['kernels_in_replays']}; the kernels' counts equal "
-              f"the profiler's in every profiled call: "
-              f"{gph['counts_match_profiler']}; {card}")
+              f"of 32 turns, beam 5; both kernels inside the graph "
+              f"launches: {gph['kernels_in_replays']}; the kernels' "
+              f"counts equal the profiler's in every profiled call "
+              f"(eager, and the fixed loop's graph): "
+              f"{gph['counts_match_profiler']}; a WHILE loop's counts "
+              f"(passes times the body's) equal the eager loop's: "
+              f"{gph['loop_counts_equal_eager']}; {card}")
         if not gph["ok"]:
             return fail("graphs: a captured decode differs from the eager "
-                        "loop, a kernel did not run inside a replay, or "
-                        "the kernels' counts differ from the profiler's")
+                        "loop or read the host before its fetch, a kernel "
+                        "did not run inside a launch, or the kernels' "
+                        "counts differ from the profiler's or the eager "
+                        "loop's")
         phase_s["graphs"] = time.time() - t_phase
 
         # the (data, model) mesh: NCCL world of one, two gloo ranks

@@ -13,7 +13,11 @@ format of ``mtn_tpu.cli.generate`` and is scored by ``python -m
 mtn_tpu_torch.cli.evaluate`` (run.sh stage 4). The checkpoint is the
 port's format (``mtn_tpu_torch/weights.py``; a JAX checkpoint enters it
 through ``mtn_tpu_torch.utils.import_flax``). A producer thread builds and
-uploads the next batches while the device decodes.
+uploads the next batches while the device decodes. In beam mode up to
+``MAX_IN_FLIGHT`` batches are launched before the oldest is fetched, as
+in JAX: a graphed batch is one launch that reads nothing on the host, so
+the device decodes the queued batches back to back while the host
+converts the finished ones; greedy and sample batches run one at a time.
 
 Under ``--multihost`` (``auto`` for ``torchrun``, or
 ``host:port,nprocs,procid``) every rank runs this command: the turn
@@ -33,6 +37,8 @@ import threading
 import time
 
 log = logging.getLogger(__name__)
+
+MAX_IN_FLIGHT = 8   # beam batches launched before the oldest is fetched
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,7 +113,8 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
     result dict (deep-copied dialogs with the 1-best hypothesis in place of
     each answer) and a dict of decode statistics. With ``shardings`` each
     rank decodes its rows of every batch and every rank gets the whole
-    result."""
+    result. Up to ``MAX_IN_FLIGHT`` beam batches are launched before the
+    oldest is fetched; the result does not depend on it."""
     from mtn_tpu_torch.data.batching import (make_batch, make_batch_indices,
                                              uniform_plans)
     from mtn_tpu_torch.data.vocab import vocab_list
@@ -144,33 +151,50 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
 
     t0 = time.time()
     t_first = None
+    in_flight: list = []
+
+    def drain_one():
+        nonlocal t_first
+        plan, raw, valid = in_flight.pop(0)
+        results = decoder.beam_results(raw, valid)  # waits for the device
+        steps.append(raw.n_steps)
+        if t_first is None:
+            t_first = time.time()
+        for qa_id, res in zip(plan.qa_ids, results):
+            nbest[qa_id] = res.texts(vlist, vocab["<eos>"])
+            answers[qa_id] = detokenize(res.tokens[0], vlist,
+                                        vocab["<eos>"])
+            scores[qa_id] = res.scores[0]
+
     producer = threading.Thread(target=produce, daemon=True)
     producer.start()
     for bi, (plan, db) in enumerate(iter(q.get, None)):
         if decode_cfg.decode_style == "beam_search":
-            raw = decoder.beam_batch_raw(db)
-            steps.append(raw.n_steps)
-            valid = decoder.gather_rows(db.valid)
-            for qa_id, res in zip(plan.qa_ids,
-                                  decoder.beam_results(raw, valid)):
-                nbest[qa_id] = res.texts(vlist, vocab["<eos>"])
-                answers[qa_id] = detokenize(res.tokens[0], vlist,
-                                            vocab["<eos>"])
-                scores[qa_id] = res.scores[0]
-        else:
-            # the plan index folds into the sampler's noise, as in JAX
-            rows = (decoder.sample_batch(db, fold=bi)
-                    if decode_cfg.decode_style == "sample"
-                    else decoder.greedy_batch(db))
-            for qa_id, row in zip(plan.qa_ids, rows):
-                answers[qa_id] = " ".join(vlist[t] for t in row)
-                scores[qa_id] = 0.0
+            in_flight.append((plan, decoder.beam_batch_raw(db),
+                              decoder.gather_rows(db.valid)))
+            if len(in_flight) >= MAX_IN_FLIGHT:
+                drain_one()
+            continue
+        # the plan index folds into the sampler's noise, as in JAX
+        rows = (decoder.sample_batch(db, fold=bi)
+                if decode_cfg.decode_style == "sample"
+                else decoder.greedy_batch(db))
+        for qa_id, row in zip(plan.qa_ids, rows):
+            answers[qa_id] = " ".join(vlist[t] for t in row)
+            scores[qa_id] = 0.0
         if t_first is None:
             t_first = time.time()
+    while in_flight:
+        drain_one()
     producer.join()
     if err:
         raise err[0]
     wall = time.time() - t0
+    if decode_cfg.decode_style == "beam_search" and t_first is not None:
+        steady = time.time() - t_first
+        log.info("first batch (run eagerly) after %.1fs; steady-state "
+                 "%.2f responses/sec", t_first - t0,
+                 max(n - decode_cfg.turn_batch, 0) / max(steady, 1e-9))
 
     result_dialogs = []
     qa_id = 0

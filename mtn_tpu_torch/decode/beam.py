@@ -21,11 +21,13 @@ function of :mod:`mtn_tpu_torch.decode.steps` at a 0-d tensor position,
 the function that :mod:`mtn_tpu_torch.utils.aot` exports.
 
 Two ways to run a batch. On a CUDA device without a mesh, beam, greedy,
-sample and rank batches run as captured device programs
+sample and rank batches run as one device program each
 (:mod:`mtn_tpu_torch.decode.graphs`, the counterpart of JAX's jitted
-decoders), with the early-stop test on the device and read once every
-few steps; a shape's first batch, and a shape the runner's cache does
-not admit, runs the eager loop. Everywhere else (the CPU, a mesh, whose
+decoders): one graph launch, with the early-stop test on the device,
+and the results (``BeamRaw``'s step count too) left on the device until
+the caller fetches them, so that batches queue behind one another; a
+shape's first batch, and a shape the runner's cache does not admit,
+runs the eager loop. Everywhere else (the CPU, a mesh, whose
 collectives go over gloo and cannot be captured) the eager loops run
 (:meth:`BeamDecoder.beam_eager`, :meth:`~BeamDecoder.tokens_eager`,
 :meth:`~BeamDecoder.rank_eager`), their early-stop test on the host:
@@ -57,7 +59,7 @@ stopped on its own rows would leave the others waiting in the gather.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -72,10 +74,10 @@ from mtn_tpu_torch.decode.steps import (NEG_INF, BeamResult,  # noqa: F401
                                         rank_inputs, rank_step,
                                         sample_transform, token_init,
                                         token_step, top_k)
-from mtn_tpu_torch.decode.graphs import GraphRunner
+from mtn_tpu_torch.decode.graphs import GraphRunner, fetching
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
 from mtn_tpu_torch.parallel.collectives import gather_rows
-from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks
+from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks, upload
 
 
 def _round_up_int(n: int, m: int) -> int:
@@ -89,7 +91,12 @@ class BeamRaw:
     comp_scores: torch.Tensor   # (B, nbest) f32
     comp_buf: torch.Tensor      # (B, nbest, maxlen+1)
     comp_len: torch.Tensor      # (B, nbest)
-    n_steps: int                # decode steps run
+    # decode steps run: a 0-d device count from a graphed early-stopped
+    # batch until beam_results fetches it
+    n_steps: Union[int, torch.Tensor]
+    # a graphed batch's event behind its launch: its fetch waits for it
+    # alone, not for the batches launched after it
+    ready: Optional[object] = None
 
 
 class BeamDecoder:
@@ -134,6 +141,27 @@ class BeamDecoder:
         return lambda tokens, pos, self_kv: self._step(state, tokens, pos,
                                                        self_kv)
 
+    # the one-step functions of the program sets (decode/graphs.py)
+    @property
+    def vocab_size(self) -> int:
+        return self.model.cfg.vocab_size
+
+    def beam_advance(self, state, l, *carry):
+        """One :func:`beam_step` at ``l`` on ``carry`` (the beam loop's
+        carry, then the KV caches)."""
+        return beam_step(self._stepper(state), l, *carry, self.cfg,
+                         self.eos, self.unk)
+
+    def token_next(self, state, l, cur, self_kv, u):
+        """One :func:`token_step` at ``l`` after ``cur``."""
+        return token_step(self._stepper(state), l, cur, self_kv, u,
+                          self.cfg)
+
+    def rank_advance(self, state, l, rows, inputs, lens, total, self_kv):
+        """One :func:`rank_step` at ``l``."""
+        return rank_step(self._stepper(state), l, rows, inputs, lens, total,
+                         self_kv)
+
     @staticmethod
     def _positions(n: int, device) -> torch.Tensor:
         """0-d int64 positions come from this (n,) tensor: one transfer
@@ -177,8 +205,9 @@ class BeamDecoder:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def beam_batch_raw(self, batch: DeviceBatch) -> BeamRaw:
-        """One beam-decoded batch on the device: captured programs where
-        :meth:`graphed`, else :meth:`beam_eager`."""
+        """One beam-decoded batch on the device: one graph launch where
+        :meth:`graphed` (returning before the device is done, with no
+        host read), else :meth:`beam_eager`."""
         if self.graphed(batch.query):
             return self.graphs.beam(self, batch)
         return self.beam_eager(batch)
@@ -202,10 +231,14 @@ class BeamDecoder:
 
     @staticmethod
     def beam_results(raw: BeamRaw, valid) -> List[BeamResult]:
-        """Fetch one decoded batch to the host and convert it."""
-        return completions_to_results(
-            raw.comp_scores.cpu().numpy(), raw.comp_buf.cpu().numpy(),
-            raw.comp_len.cpu().numpy(), np.asarray(valid.cpu()))
+        """Fetch one decoded batch to the host and convert it;
+        ``raw.n_steps`` becomes an ``int``."""
+        with fetching(raw.ready):
+            out = completions_to_results(
+                raw.comp_scores.cpu().numpy(), raw.comp_buf.cpu().numpy(),
+                raw.comp_len.cpu().numpy(), np.asarray(valid.cpu()))
+            raw.n_steps = int(raw.n_steps)
+        return out
 
     def beam_batch(self, batch: DeviceBatch) -> List[BeamResult]:
         """Beam-decode every row; one BeamResult per *valid* row."""
@@ -321,9 +354,16 @@ class BeamDecoder:
               cand_len: torch.Tensor) -> torch.Tensor:
         """(B, N) log-likelihoods of the candidates: captured programs
         where :meth:`graphed`, else :meth:`rank_eager`."""
+        return self._rank_ready(batch, cand, cand_len)[0]
+
+    @torch.inference_mode()
+    def _rank_ready(self, batch: DeviceBatch, cand: torch.Tensor,
+                    cand_len: torch.Tensor):
+        """:meth:`_rank`'s scores and the event behind a graphed batch's
+        launch (None for an eager one)."""
         if self.graphed(cand):
             return self.graphs.rank(self, batch, cand, cand_len)
-        return self.rank_eager(batch, cand, cand_len)
+        return self.rank_eager(batch, cand, cand_len), None
 
     @torch.inference_mode()
     def rank_eager(self, batch: DeviceBatch, cand: torch.Tensor,
@@ -363,11 +403,11 @@ class BeamDecoder:
     def rank_batch_raw(self, batch: DeviceBatch,
                        candidates: Sequence[Sequence[Sequence[int]]],
                        include_eos: bool = True, len_bucket: int = 8,
-                       cand_bucket: int = 8
-                       ) -> Tuple[Optional[torch.Tensor], List[int]]:
-        """(device scores (B, N) or None, candidate count per row). Under
-        a data axis ``candidates`` has a row for every row of the whole
-        batch, and the scores are the whole batch's."""
+                       cand_bucket: int = 8) -> tuple:
+        """(device scores (B, N) or None, candidate count per row, the
+        event behind a graphed batch's launch or None). Under a data axis
+        ``candidates`` has a row for every row of the whole batch, and
+        the scores are the whole batch's."""
         B = batch.query.shape[0]
         rows = B * (self.data.size if self.data is not None else 1)
         if len(candidates) != rows:
@@ -376,7 +416,7 @@ class BeamDecoder:
         n_counts = [len(c) for c in candidates]
         n_max = max(n_counts, default=0)
         if n_max == 0:
-            return None, n_counts
+            return None, n_counts, None
         extra = 1 if include_eos else 0
         l_max = max((len(t) for c in candidates for t in c), default=0) + extra
         N = max(_round_up_int(n_max, cand_bucket), 1)
@@ -390,18 +430,20 @@ class BeamDecoder:
                 clen[b, n] = len(toks)
         dev = batch.query.device
         mine = self._local(B)
-        return (self.gather_rows(self._rank(
-            batch, torch.from_numpy(cand[mine]).to(dev),
-            torch.from_numpy(clen[mine]).to(dev))), n_counts)
+        scores, ready = self._rank_ready(
+            batch, upload(torch.from_numpy(cand[mine]), dev),
+            upload(torch.from_numpy(clen[mine]), dev))
+        return self.gather_rows(scores), n_counts, ready
 
     @staticmethod
     def rank_results(raw, valid) -> List[List[float]]:
-        """Fetch one ranked batch and trim it to the valid rows and each
-        row's candidate count."""
-        scores, n_counts = raw
-        valid = np.asarray(valid.cpu())
-        if scores is None:  # no candidates anywhere in the batch
-            return [[] for b in range(len(n_counts)) if valid[b]]
-        scores = scores.cpu().numpy()
+        """Fetch one ranked batch (:meth:`rank_batch_raw`'s triple) and
+        trim it to the valid rows and each row's candidate count."""
+        scores, n_counts, ready = raw
+        with fetching(ready):
+            valid = np.asarray(valid.cpu())
+            if scores is None:  # no candidates anywhere in the batch
+                return [[] for b in range(len(n_counts)) if valid[b]]
+            scores = scores.cpu().numpy()
         return [[float(s) for s in scores[b][:n_counts[b]]]
                 for b in range(len(n_counts)) if valid[b]]

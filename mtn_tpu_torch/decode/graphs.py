@@ -1,4 +1,4 @@
-"""Each decode batch on a CUDA device as captured device programs: the
+"""Each decode batch on a CUDA device as one device program: the
 counterpart of ``jax.jit`` over ``mtn_tpu``'s ``beam_fn``, ``greedy_fn``,
 ``sample_fn`` and ``rank_fn`` (``mtn_tpu/decode/beam.py``).
 
@@ -9,25 +9,27 @@ per batch shape (:class:`BeamPrograms`, :class:`TokenPrograms`,
 
 - static input buffers, into which each batch is copied (one ``copy_``
   a tensor);
-- the prefix program: the decoder's prefix of the mode
-  (:meth:`~mtn_tpu_torch.decode.beam.BeamDecoder.beam_prefix`,
-  ``token_prefix``, ``rank_prefix``: the per-turn precompute, the tiling
+- the prefix program: the source's prefix of the mode (the decoder's
+  :meth:`~mtn_tpu_torch.decode.beam.BeamDecoder.beam_prefix`,
+  ``token_prefix``, ``rank_prefix``, or an AOT artifact's, in
+  :mod:`mtn_tpu_torch.utils.aot`: the per-turn precompute, the tiling
   over the beam or the candidates, the zeroed KV caches and the loop's
   first carry), left in static buffers, and the exit test of step 0;
-- the loop programs over that carry, built of the step functions of
-  :mod:`mtn_tpu_torch.decode.steps`. With ``early_stop``, a chunk of
-  ``k`` steps and a tail of ``maxlen mod k``, each replayed after one
-  host read of the exit test that the program before it left on the
-  device: the eager loop reads once a step, JAX's ``lax.while_loop``
-  never. A chunk's first step runs as it is, since its test read true;
-  the steps after it are masked (:func:`~mtn_tpu_torch.decode.steps.
-  beam_step_masked`, :func:`~mtn_tpu_torch.decode.steps.token_step_at`)
-  and end the chunk with its next test. Steps past the exit run and are
-  thrown away: the masked pool does not move, and ``n_steps`` is the
-  count of JAX's loop. No chunk steps past ``maxlen - 1``. At ``k = 1``
-  (``CHUNK``) nothing is masked. Without ``early_stop``, one program of
-  ``maxlen`` steps (JAX's ``lax.scan``); rank, one program of its L
-  steps.
+- the loop programs over that carry, built of the source's one-step
+  functions (``beam_advance``, ``token_next``, ``rank_advance``). With
+  ``early_stop``, a chunk of ``k`` steps (``CHUNK``) repeated while the
+  exit test that the program before it left on the device holds and
+  ``l <= maxlen - k``, then a tail of ``r = maxlen mod k`` steps if the
+  test still holds: JAX's ``lax.while_loop``. A chunk's first step runs
+  as it is, since its test held; the steps after it are masked
+  (:func:`~mtn_tpu_torch.decode.steps.beam_step_masked`,
+  :func:`~mtn_tpu_torch.decode.steps.token_step_at`) and end the chunk
+  with its next test. Steps past the exit run and are thrown away: the
+  masked pool does not move, and ``n_steps``, a device count of the
+  chunks' first steps and the live masked steps, is the count of JAX's
+  loop. No chunk steps past ``maxlen - 1``. Without ``early_stop``, one
+  program of ``maxlen`` steps (JAX's ``lax.scan``); rank, one program of
+  its L steps.
 
 The position is a 0-d tensor of the carry that each step advances
 (``l.add_(1)``), so no program bakes in a position. A sampled batch
@@ -36,21 +38,33 @@ the eager loop draws it (``gumbel_uniforms(draw_seed(seed, fold, l))``),
 into a static ``(maxlen, B, V)`` input: every draw is bitwise the eager
 loop's.
 
-On CUDA each program is a CUDA graph, captured (under the caller's
+On CUDA each program is a PyTorch capture, taken (under the caller's
 ``torch.inference_mode``) after one eager run of the prefix and one
 step on a side stream, which builds and loads the kernels and sets their
-attributes before the capture; the graphs of a set share one memory
-pool. A failure to capture or to replay raises: nothing falls back to
-the eager loop. On the CPU the same program sets run their functions as
-they are (``capture=False``): the CPU tests hold them to the eager loop
-and to JAX, while the decoder's CPU path stays the eager loop.
+attributes; the captures of a set share one memory pool and are never
+replayed on their own. :class:`~mtn_tpu_torch.ops.graph_loop.GraphLoop`
+copies them into one executable graph, the loop as a WHILE node and the
+tail as an IF node whose conditions a one-thread kernel sets on the
+device (``csrc/graph_loop.cu``). A batch is then one copy into the
+static inputs, one graph launch and one clone of the outputs, all
+stream-ordered: nothing is read on the host until the caller fetches
+the results, so the next batch can be loaded and launched behind it. A
+failure to capture, to build the graph or to launch it raises: nothing
+falls back to a host-driven or an eager loop. On the CPU the same
+program sets run the same structure on the host
+(:class:`~mtn_tpu_torch.ops.graph_loop.HostLoop`, ``capture=False``,
+each test read from the tensors): the CPU tests hold them to the eager
+loop and to JAX, while the decoder's CPU path stays the eager loop.
 
 A capture launches nothing: the kernel wrappers' calls during it go to
-the capture's record (:func:`mtn_tpu_torch.ops._build.recording`), and
-each replay adds the graph's launches to the kernels' counts
-(:func:`mtn_tpu_torch.ops._build.replayed`), so the counts stay counts
-of real launches. The graphs read the model's weights where they lie:
-an update in place reaches them, a new model needs a new decoder.
+the capture's record (:func:`mtn_tpu_torch.ops._build.recording`). A
+launch of the graph adds each program's record times the number of
+times it ran (:func:`mtn_tpu_torch.ops._build.replayed`): the prefix
+once, the chunk and the tail as many times as the final position says,
+which reaches the host with the batch's results
+(:func:`mtn_tpu_torch.ops._build.defer`). So the counts stay counts of
+real launches. The graphs read the model's weights where they lie: an
+update in place reaches them, a new model needs a new decoder.
 
 Program sets are keyed by every value that fixes a shape or a branch
 (the mode, the batch's tensor shapes and types, the ``DecodeConfig``
@@ -69,33 +83,63 @@ holds thus keeps the sets it has rather than capturing at every batch.
 The counts by shape (at most ``MAX_SEEN`` shapes, the least recently
 seen forgotten first) are halved every ``MAX_SEEN`` batches, so that
 traffic that moves on to other shapes displaces the old sets.
-
-Not built: reading chunk i's flag while chunk i+1 replays (a pinned
-copy and an event), which would never stall the card at the cost of up
-to one more chunk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from mtn_tpu_torch.decode.steps import (all_ended_t, beam_open_t,
-                                        beam_step, beam_step_masked,
-                                        rank_step, token_init,
+                                        beam_step_masked, token_init,
                                         token_step_at)
 from mtn_tpu_torch.ops import _build
+from mtn_tpu_torch.ops.graph_loop import GraphLoop, HostLoop
 
-# steps a chunk, from the card's sweep (chip_smoke [graphs]): a wasted
-# step past the exit costs more device time than a host read
+# steps a chunk, from the card's sweep (chip_smoke [graphs]): a step past
+# the exit costs more device time than one more pass of the WHILE node
 CHUNK = 1
 MAX_PROGRAMS = 8   # program sets a decoder keeps (~0.8 GB each at B160)
 MAX_SEEN = 1024    # shapes a decoder counts
+
+
+_FETCH_STREAMS: Dict[int, torch.cuda.Stream] = {}
+_FETCH_LOCK = threading.Lock()
+
+
+def _ready() -> torch.cuda.Event:
+    """An event on the current stream, behind a batch's launch and the
+    copies of its outputs."""
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+@contextlib.contextmanager
+def fetching(ready: Optional[torch.cuda.Event]):
+    """Reads of one batch's outputs inside the block wait for ``ready``
+    (recorded behind that batch) alone, not for the batches queued after
+    it on the stream: they run on a side stream that waits for the event.
+    With ``ready`` None (an eager or a CPU batch) the block runs as it
+    is."""
+    if ready is None:
+        yield
+        return
+    dev = torch.cuda.current_device()
+    with _FETCH_LOCK:
+        if dev not in _FETCH_STREAMS:
+            _FETCH_STREAMS[dev] = torch.cuda.Stream(dev)
+        stream = _FETCH_STREAMS[dev]
+    stream.wait_event(ready)
+    with torch.cuda.stream(stream):
+        yield
 
 
 def _flat(obj) -> List[torch.Tensor]:
@@ -136,14 +180,17 @@ class Program:
     its set, as one CUDA graph (``capture``) or as it is. ``generators``:
     the CUDA generators ``fn`` draws from, registered with the graph, so
     that each replay draws from the seed and offset they hold then and
-    advances them as a run of ``fn`` would."""
+    advances them as a run of ``fn`` would. With ``keep``, the capture's
+    graph is kept for a :class:`~mtn_tpu_torch.ops.graph_loop.GraphLoop`
+    to copy and is never instantiated or replayed on its own."""
 
     def __init__(self, fn: Callable[[], None], capture: bool, pool=None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 keep: bool = False):
         self.fn, self.graph, self.calls, self.capture_s = fn, None, {}, 0.0
         if capture:
             t0 = time.perf_counter()
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
             for g in generators:
                 self.graph.register_generator_state(g)
             ctx = torch.cuda.graph(self.graph, pool=pool,
@@ -166,8 +213,7 @@ class Program:
 
 class ProgramSet:
     """The static inputs of one batch shape and the programs over them;
-    ``replays`` and ``reads`` (host reads of the exit test) count this
-    set's runs."""
+    ``replays`` counts this set's program runs."""
 
     def __init__(self, batch, capture: bool, pool=None):
         self.capture = capture
@@ -176,11 +222,12 @@ class ProgramSet:
         self.pool = (pool if pool is not None or not capture
                      else torch.cuda.graph_pool_handle())
         self.programs: Dict[str, Program] = {}
-        self.replays = self.reads = 0
+        self.replays = 0
 
     def _build(self, warm_up: List[Callable[[], None]],
                programs: Dict[str, Callable[[], None]],
-               generators: Sequence[torch.Generator] = ()) -> None:
+               generators: Sequence[torch.Generator] = (),
+               keep: bool = False) -> None:
         """Capture ``programs`` in their order after running ``warm_up``
         once on a side stream (run nothing when not capturing)."""
         if self.capture:
@@ -193,7 +240,7 @@ class ProgramSet:
             main.wait_stream(side)
         for name, fn in programs.items():
             self.programs[name] = Program(fn, self.capture, self.pool,
-                                          generators)
+                                          generators, keep)
 
     def run_program(self, name: str) -> None:
         self.programs[name]()
@@ -206,178 +253,261 @@ class ProgramSet:
     def capture_s(self) -> Dict[str, float]:
         return {name: p.capture_s for name, p in self.programs.items()}
 
-    def _build_loop(self, dec) -> None:
+
+class LoopPrograms(ProgramSet):
+    """A decode set: the prefix and the loop's programs as one
+    :class:`~mtn_tpu_torch.ops.graph_loop.GraphLoop` (CUDA) or
+    :class:`~mtn_tpu_torch.ops.graph_loop.HostLoop` (the CPU), launched
+    once a batch. ``launches`` counts the launches, ``reads`` the host
+    reads of an exit test (the CPU's), ``iterations`` the chunks and
+    tails run, the CPU's at once and the card's when the batch's final
+    position reaches the host."""
+
+    def __init__(self, batch, capture: bool):
+        super().__init__(batch, capture)
+        self.launches = self.reads = 0
+        self.iterations = [0, 0]
+        self.chunk, self.tail, self.loop = 0, 0, None
+
+    def _build_loop(self, src) -> None:
         """The prefix and the ``chunk{n}`` programs of a decode loop: with
-        ``early_stop`` a chunk of ``CHUNK`` steps and a tail of ``maxlen
-        mod CHUNK``, else one of ``maxlen`` steps."""
-        cfg = self.cfg = dataclasses.replace(dec.cfg)  # the key's values
+        ``early_stop`` a chunk of ``CHUNK`` steps repeated while the test
+        ``flag`` holds, and a tail of ``maxlen mod CHUNK``; else one of
+        ``maxlen`` steps."""
+        cfg = self.cfg = dataclasses.replace(src.cfg)  # the key's values
         self.chunk = min(CHUNK, cfg.maxlen)
-        sizes = ({self.chunk, cfg.maxlen % self.chunk} - {0}
-                 if cfg.early_stop else {cfg.maxlen})
-        self._build([lambda: self._prefix(dec), lambda: self._steps(dec, 1)],
-                    {"prefix": lambda: self._prefix(dec),
-                     **{f"chunk{n}": (lambda n=n: self._steps(dec, n))
-                        for n in sorted(sizes)}})
+        self.tail = cfg.maxlen % self.chunk if cfg.early_stop else 0
+        sizes = ({self.chunk, self.tail} - {0} if cfg.early_stop
+                 else {cfg.maxlen})
+        self._build([lambda: self._prefix(src), lambda: self._steps(src, 1)],
+                    {"prefix": lambda: self._prefix(src),
+                     **{f"chunk{n}": (lambda n=n: self._steps(src, n))
+                        for n in sorted(sizes)}}, keep=True)
+        if not cfg.early_stop:
+            self._assemble([("prefix", None), (f"chunk{cfg.maxlen}", None)])
+            return
+        maxlen = cfg.maxlen
+        plan = [("prefix", None),
+                (f"chunk{self.chunk}", (maxlen - self.chunk, False))]
+        if self.tail:
+            plan.append((f"chunk{self.tail}", (maxlen - self.tail, True)))
+        self._assemble(plan)
 
-    def _chunked(self, read: Callable[[], bool]) -> int:
-        """Replay the chunk programs (the tail last) while ``read()``, one
-        host read of the test the last program left, is true and fewer
-        than ``maxlen`` steps have run; the number of chunks replayed."""
-        done = chunks = 0
-        while True:
-            self.reads += 1
-            if not read() or done == self.cfg.maxlen:
-                return chunks
-            n = min(self.chunk, self.cfg.maxlen - done)
-            self.run_program(f"chunk{n}")
-            done += n
-            chunks += 1
+    def _assemble(self, plan: Sequence[Tuple[str, Optional[tuple]]]
+                  ) -> None:
+        """The loop of ``plan``: each program run once (test None) or,
+        with ``(limit, once)``, while (if) the set's flag holds and ``l
+        <= limit``."""
+        self.plan = list(plan)
+        if not self.capture:
+            # the CPU's prefix makes the flag and the position anew at
+            # each run: the host loop reads them at each test
+            self.loop = HostLoop()
+            for name, test in plan:
+                body = functools.partial(self.run_program, name)
+                if test is None:
+                    self.loop.run(body)
+                else:
+                    self.loop.repeat(body, self.flag, lambda: self.l, *test)
+            return
+        self.loop = GraphLoop()
+        for name, test in plan:
+            if test is None:
+                self.loop.run(self.programs[name].graph)
+            else:
+                self.loop.repeat(self.programs[name].graph, self.flag(),
+                                 self.l, *test)
+        self.loop.instantiate()
+
+    def flag(self) -> torch.Tensor:
+        """The loop's exit test, left on the device by each program."""
+        raise NotImplementedError
+
+    def runs(self, l_final: int) -> Dict[str, int]:
+        """How often each program ran in a launch that ended at position
+        ``l_final``: a chunk of k steps ``l // k`` times, the tail once if
+        ``l mod k`` is not 0 (``r < k``)."""
+        if not self.cfg.early_stop:
+            return {name: 1 for name, _ in self.plan}
+        out = {"prefix": 1, f"chunk{self.chunk}": l_final // self.chunk}
+        if self.tail:
+            out[f"chunk{self.tail}"] = int(l_final % self.chunk != 0)
+        return out
+
+    def _account(self, l_final: int) -> None:
+        """Add each program's recorded launches times its runs."""
+        runs = self.runs(l_final)
+        for name, n in runs.items():
+            _build.replayed(self.programs[name].calls, n)
+        self.replays += sum(runs.values())
+        self.iterations = [runs.get(f"chunk{self.chunk}", 0),
+                           runs.get(f"chunk{self.tail}", 0)
+                           if self.tail else 0]
+
+    def launch(self) -> None:
+        """The prefix and the loop over the loaded batch: one graph
+        launch on CUDA, whose launches are counted once its final
+        position reaches the host, with no read before; the loop on the
+        host on the CPU."""
+        self.launches += 1
+        if not self.capture:
+            reads = self.loop.reads
+            self.loop.launch()
+            self.reads += self.loop.reads - reads
+            self.iterations = (self.loop.iterations + [0, 0])[:2]
+            return
+        self.loop.launch()
+        if self.cfg.early_stop:
+            _build.defer(self.l.reshape(1).clone(),
+                         lambda v: self._account(v[0]))
+        else:
+            self._account(self.cfg.maxlen)
+
+    def close(self) -> None:
+        """Free the executable graph (a launch in flight completes)."""
+        if isinstance(self.loop, GraphLoop):
+            self.loop.close()
 
 
-class BeamPrograms(ProgramSet):
+class BeamPrograms(LoopPrograms):
     """``beam_fn``: the prefix, then the chunk and tail (with
     ``early_stop``) or the ``maxlen`` steps in one program. ``flags``
-    holds the next step's test and the live masked steps' count."""
+    holds the next step's test and the step count."""
 
-    def __init__(self, dec, batch, capture: bool):
+    def __init__(self, src, batch, capture: bool):
         super().__init__(batch, capture)
-        self._build_loop(dec)
+        self._build_loop(src)
 
-    def _prefix(self, dec) -> None:
-        self.state, self.carry = dec.beam_prefix(self.batch)
+    def flag(self) -> torch.Tensor:
+        return self.flags[0]
+
+    def _prefix(self, src) -> None:
+        self.state, self.carry = src.beam_prefix(self.batch)
         self.l = torch.zeros((), dtype=torch.int64, device=self.device)
         self.flags = torch.zeros(2, dtype=torch.int64, device=self.device)
         if self.cfg.early_stop:
             self.flags[0].copy_(beam_open_t(self.carry[1], self.carry[2],
                                             self.l, self.cfg))
 
-    def _steps(self, dec, n: int) -> None:
+    def _steps(self, src, n: int) -> None:
         cfg = self.cfg
-        step = dec._stepper(self.state)
+        advance = functools.partial(src.beam_advance, self.state)
         *carry, self_kv = self.carry
         count = self.flags[1]
         alive, live = True, count
         for i in range(n):
             if i == 0 or not cfg.early_stop:
-                # a chunk runs only after its first step's test read true
-                *carry, self_kv = beam_step(step, self.l, *carry, self_kv,
-                                            cfg, dec.eos, dec.unk)
+                # a chunk runs only after its first step's test held
+                *carry, self_kv = advance(self.l, *carry, self_kv)
+                if cfg.early_stop:
+                    live = live + 1
             else:
                 *carry, self_kv, alive, live = beam_step_masked(
-                    step, self.l, *carry, self_kv, alive, live, cfg,
-                    dec.eos, dec.unk)
+                    advance, self.l, *carry, self_kv, alive, live, cfg)
             self.l.add_(1)
         _copy_into(self.carry, (*carry, self_kv))
         if cfg.early_stop:
-            # the next step's test, read before the next chunk
+            # the next step's test, read by the next chunk's
             nxt = beam_open_t(carry[1], carry[2], self.l, cfg)
             self.flags[0].copy_(nxt if alive is True else alive & nxt)
-            if live is not count:
-                count.copy_(live)
+            count.copy_(live)
 
     def run(self, batch):
         """``(comp_scores, comp_buf, comp_len)`` of ``batch`` and its step
-        count."""
-        cfg = self.cfg
+        count (a 0-d device tensor with ``early_stop``), copied out of
+        the static buffers behind the launch."""
         self.load(batch)
-        self.run_program("prefix")
-        if not cfg.early_stop:
-            self.run_program(f"chunk{cfg.maxlen}")
-            n_steps = cfg.maxlen
-        else:
-            box = []
-
-            def read() -> bool:
-                box[:] = self.flags.tolist()
-                return bool(box[0])
-            # each chunk's first step, then the live masked steps
-            n_steps = self._chunked(read) + box[1]
+        self.launch()
+        n_steps = (self.flags[1].clone() if self.cfg.early_stop
+                   else self.cfg.maxlen)
         return tuple(t.clone() for t in self.carry[2:5]), n_steps
 
 
-class TokenPrograms(ProgramSet):
+class TokenPrograms(LoopPrograms):
     """``greedy_fn`` and ``sample_fn``: the prefix, then the chunk and
     tail of :func:`~mtn_tpu_torch.decode.steps.token_step_at` (with
     ``early_stop``) or the ``maxlen`` steps in one program; a sampled set
     takes the uniforms of every position as a static input."""
 
-    def __init__(self, dec, batch, sampled: bool, capture: bool):
+    def __init__(self, src, batch, sampled: bool, capture: bool):
         super().__init__(batch, capture)
-        B = batch.query.shape[0]
-        self.u = (torch.empty((dec.cfg.maxlen, B, dec.model.cfg.vocab_size),
+        B = _flat(batch)[0].shape[0]
+        self.u = (torch.empty((src.cfg.maxlen, B, src.vocab_size),
                               dtype=torch.float32, device=self.device)
                   if sampled else None)
-        self._build_loop(dec)
+        self._build_loop(src)
 
-    def _prefix(self, dec) -> None:
-        dev, B = self.device, self.batch.query.shape[0]
-        self.state, self.self_kv = dec.token_prefix(self.batch)
-        self.toks = token_init(B, self.cfg.maxlen, dev, dec.pad, dec.sos)
+    def flag(self) -> torch.Tensor:
+        return self.alive
+
+    def _prefix(self, src) -> None:
+        dev, B = self.device, _flat(self.batch)[0].shape[0]
+        self.state, self.self_kv = src.token_prefix(self.batch)
+        self.toks = token_init(B, self.cfg.maxlen, dev, src.pad, src.sos)
         self.l = torch.zeros((), dtype=torch.int64, device=dev)
         if self.cfg.early_stop:
-            self.alive = ~all_ended_t(self.toks, dec.eos)
+            self.alive = ~all_ended_t(self.toks, src.eos)
 
-    def _steps(self, dec, n: int) -> None:
+    def _steps(self, src, n: int) -> None:
         cfg = self.cfg
-        step = dec._stepper(self.state)
+
+        def pick(l, cur):
+            u = (None if self.u is None
+                 else self.u.index_select(0, l.reshape(1))[0])
+            return src.token_next(self.state, l, cur, self.self_kv, u)
         alive = True
         for i in range(n):
-            u = (None if self.u is None
-                 else self.u.index_select(0, self.l.reshape(1))[0])
             # toks is written in place; a chunk runs only after its first
-            # step's test read true
+            # step's test held
             masked = cfg.early_stop and i > 0
-            _, out = token_step_at(step, self.l, self.toks, self.self_kv,
-                                   u, cfg, alive if masked else None,
-                                   dec.pad, dec.eos)
+            _, out = token_step_at(pick, self.l, self.toks,
+                                   alive if masked else None, src.pad,
+                                   src.eos)
             if masked:
                 alive = out
             self.l.add_(1)
         if cfg.early_stop:
-            nxt = ~all_ended_t(self.toks, dec.eos)
+            nxt = ~all_ended_t(self.toks, src.eos)
             self.alive.copy_(nxt if alive is True else alive & nxt)
 
     def run(self, batch, uniforms: Callable[[int], Optional[torch.Tensor]]
             ) -> torch.Tensor:
         """(B, maxlen+1) tokens of ``batch``; ``uniforms(l)`` the (B, V)
         noise of position l (sampled sets)."""
-        cfg = self.cfg
         self.load(batch)
         if self.u is not None:
-            for l in range(cfg.maxlen):
+            for l in range(self.cfg.maxlen):
                 self.u[l].copy_(uniforms(l))
-        self.run_program("prefix")
-        if cfg.early_stop:
-            self._chunked(lambda: bool(self.alive))
-        else:
-            self.run_program(f"chunk{cfg.maxlen}")
+        self.launch()
         return self.toks.clone()
 
 
-class RankPrograms(ProgramSet):
+class RankPrograms(LoopPrograms):
     """``rank_fn``: the prefix over the (B, N, L) candidates, then the L
     teacher-forced steps in one program (``_build_rank``'s scan)."""
 
-    def __init__(self, dec, batch, cand: torch.Tensor,
+    def __init__(self, src, batch, cand: torch.Tensor,
                  cand_len: torch.Tensor, capture: bool):
         super().__init__(batch, capture)
         self.cand, self.cand_len = cand.clone(), cand_len.clone()
+        self.cfg = dataclasses.replace(src.cfg, early_stop=False)
         L = cand.shape[2]
-        self._build([lambda: self._prefix(dec), lambda: self._steps(dec, 1)],
-                    {"prefix": lambda: self._prefix(dec),
-                     "steps": lambda: self._steps(dec, L)})
+        self._build([lambda: self._prefix(src), lambda: self._steps(src, 1)],
+                    {"prefix": lambda: self._prefix(src),
+                     "steps": lambda: self._steps(src, L)}, keep=True)
+        self._assemble([("prefix", None), ("steps", None)])
 
-    def _prefix(self, dec) -> None:
+    def _prefix(self, src) -> None:
         (self.state, self.self_kv, self.rows, self.inputs, self.lens,
-         self.total) = dec.rank_prefix(self.batch, self.cand, self.cand_len)
+         self.total) = src.rank_prefix(self.batch, self.cand, self.cand_len)
         self.l = torch.zeros((), dtype=torch.int64, device=self.device)
 
-    def _steps(self, dec, n: int) -> None:
-        step = dec._stepper(self.state)
+    def _steps(self, src, n: int) -> None:
         total = self.total
         for _ in range(n):
-            total = rank_step(step, self.l, self.rows, self.inputs,
-                              self.lens, total, self.self_kv)
+            total = src.rank_advance(self.state, self.l, self.rows,
+                                     self.inputs, self.lens, total,
+                                     self.self_kv)
             self.l.add_(1)
         self.total.copy_(total)
 
@@ -387,8 +517,7 @@ class RankPrograms(ProgramSet):
         self.load(batch)
         self.cand.copy_(cand)
         self.cand_len.copy_(cand_len)
-        self.run_program("prefix")
-        self.run_program("steps")
+        self.launch()
         return self.total.reshape(self.cand.shape[:2]).clone()
 
 
@@ -433,7 +562,9 @@ class ProgramCache:
                 self.eager += 1
                 return None
             if full:
-                del self.sets[victim]
+                dropped = self.sets.pop(victim)
+                if hasattr(dropped, "close"):
+                    dropped.close()
                 self.evictions += 1
             ps = self.sets[key] = make()
             self.captures += 1
@@ -470,7 +601,8 @@ class GraphRunner(ProgramCache):
             if ps is None:
                 return dec.beam_eager(batch)
             pool, n_steps = ps.run(batch)
-        return BeamRaw(*pool, n_steps)
+            ready = _ready() if ps.capture else None
+        return BeamRaw(*pool, n_steps, ready=ready)
 
     def tokens(self, dec, batch, style: str, fold: int) -> torch.Tensor:
         """``BeamDecoder._token_loop`` of ``batch``."""
@@ -487,14 +619,16 @@ class GraphRunner(ProgramCache):
             return ps.run(batch, dec._uniforms(
                 style, fold, batch.query.shape[0], batch.query.device))
 
-    def rank(self, dec, batch, cand: torch.Tensor,
-             cand_len: torch.Tensor) -> torch.Tensor:
-        """``BeamDecoder._rank`` of ``batch`` and the candidates."""
+    def rank(self, dec, batch, cand: torch.Tensor, cand_len: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """``BeamDecoder._rank`` of ``batch`` and the candidates, and the
+        event behind a launch (None for an eager batch)."""
         key = ("rank", self._model_key(dec), _signature(batch),
                _signature((cand, cand_len)))
         with self._lock:
             ps = self._set(key, lambda: RankPrograms(dec, batch, cand,
                                                      cand_len, self.capture))
             if ps is None:
-                return dec.rank_eager(batch, cand, cand_len)
-            return ps.run(batch, cand, cand_len)
+                return dec.rank_eager(batch, cand, cand_len), None
+            scores = ps.run(batch, cand, cand_len)
+            return scores, _ready() if ps.capture else None

@@ -12,8 +12,8 @@ live path. The early-stop tests come in two forms: as 0-d bool tensors
 on the device (:func:`beam_open_t`, :func:`all_ended_t`), which the
 masked steps (:func:`beam_step_masked`, :func:`token_step_at`) carry
 as JAX's ``lax.while_loop`` carries its condition, so that
-:mod:`mtn_tpu_torch.decode.graphs` runs many steps between two host
-reads; and as host booleans (:func:`beam_open`, :func:`all_ended`), one
+:mod:`mtn_tpu_torch.decode.graphs` runs the whole loop with no host
+read; and as host booleans (:func:`beam_open`, :func:`all_ended`), one
 device-to-host read per step, for the loops that stay eager.
 
 Sampling is split the same way: :func:`gumbel_uniforms` draws the
@@ -266,25 +266,24 @@ def beam_step(step: Step, l: torch.Tensor, tok_buf, scores, comp_scores,
     return tok_buf, scores, comp_scores, comp_buf, comp_len, self_kv
 
 
-def beam_step_masked(step: Step, l: torch.Tensor, tok_buf, scores,
+def beam_step_masked(advance: Callable, l: torch.Tensor, tok_buf, scores,
                      comp_scores, comp_buf, comp_len, self_kv,
                      alive: torch.Tensor, n_steps: torch.Tensor,
-                     cfg: DecodeConfig, eos: int = SPECIALS["<eos>"],
-                     unk: int = SPECIALS["<unk>"]):
+                     cfg: DecodeConfig):
     """One step of the early-stopped beam loop with its exit on the
-    device, the body of JAX's ``lax.while_loop``: ``alive`` (a 0-d bool
-    tensor, or ``True``) becomes ``alive & beam_open_t(l)`` before the
-    step, the completion pool takes the step's values only where
-    ``alive`` holds, and
-    ``n_steps`` (0-d int64) counts the steps run while alive. Once the
-    test has failed, the pool stays bitwise what it was at the exit,
-    whatever the steps after it compute, and ``n_steps`` is the step
-    count of JAX's loop. Returns :func:`beam_step`'s tuple, then
-    ``alive`` and ``n_steps``."""
+    device, the body of JAX's ``lax.while_loop``: ``advance(l, tok_buf,
+    scores, comp_scores, comp_buf, comp_len, self_kv)`` is one
+    :func:`beam_step` (through the model, or an exported program);
+    ``alive`` (a 0-d bool tensor, or ``True``) becomes ``alive &
+    beam_open_t(l)`` before the step, the completion pool takes the
+    step's values only where ``alive`` holds, and ``n_steps`` (0-d
+    int64) counts the steps run while alive. Once the test has failed,
+    the pool stays bitwise what it was at the exit, whatever the steps
+    after it compute, and ``n_steps`` is the step count of JAX's loop.
+    Returns :func:`beam_step`'s tuple, then ``alive`` and ``n_steps``."""
     alive = alive & beam_open_t(scores, comp_scores, l, cfg)
-    tok_buf, scores, new_sc, new_buf, new_len, self_kv = beam_step(
-        step, l, tok_buf, scores, comp_scores, comp_buf, comp_len, self_kv,
-        cfg, eos, unk)
+    tok_buf, scores, new_sc, new_buf, new_len, self_kv = advance(
+        l, tok_buf, scores, comp_scores, comp_buf, comp_len, self_kv)
     return (tok_buf, scores, torch.where(alive, new_sc, comp_scores),
             torch.where(alive, new_buf, comp_buf),
             torch.where(alive, new_len, comp_len), self_kv, alive,
@@ -326,22 +325,21 @@ def token_step(step: Step, l: torch.Tensor, cur: torch.Tensor, self_kv,
     return gumbel_pick(sample_transform(logp, cfg), u)
 
 
-def token_step_at(step: Step, l: torch.Tensor, toks: torch.Tensor, self_kv,
-                  u=None, cfg: DecodeConfig = None,
+def token_step_at(pick: Callable, l: torch.Tensor, toks: torch.Tensor,
                   alive: torch.Tensor = None, pad: int = SPECIALS["<blank>"],
                   eos: int = SPECIALS["<eos>"]):
     """One position of the greedy or sampled loop on its (B, maxlen+1)
-    token buffer: :func:`token_step` after ``toks[:, l]``, written in
-    place at ``l + 1``. With ``alive`` (a 0-d bool tensor, or ``True``)
-    the exit is on the device, as in JAX's ``lax.while_loop``: ``alive``
-    becomes ``alive & ~all_ended_t(toks)`` before the step, and the step
-    writes ``pad`` where it is false, which is what the eager loop leaves
-    there. Returns ``(toks, alive)``."""
+    token buffer: ``pick(l, cur)``, the next (B,) tokens after ``cur =
+    toks[:, l]`` (one :func:`token_step`, through the model or an
+    exported program), written in place at ``l + 1``. With ``alive`` (a
+    0-d bool tensor, or ``True``) the exit is on the device, as in JAX's
+    ``lax.while_loop``: ``alive`` becomes ``alive & ~all_ended_t(toks)``
+    before the step, and the step writes ``pad`` where it is false, which
+    is what the eager loop leaves there. Returns ``(toks, alive)``."""
     pos = l.reshape(1)
     if alive is not None:
         alive = alive & ~all_ended_t(toks, eos)
-    nxt = token_step(step, l, toks.index_select(1, pos)[:, 0], self_kv, u,
-                     cfg)
+    nxt = pick(l, toks.index_select(1, pos)[:, 0])
     if alive is not None:
         nxt = torch.where(alive, nxt, pad)
     toks.index_copy_(1, pos + 1, nxt[:, None])

@@ -1,5 +1,6 @@
 """Build the port's native sources and load them with ``ctypes``: the CUDA
-kernels with ``nvcc``, the host C++ feature loader with ``g++``.
+kernels and the decode loop's graph builder (``csrc/graph_loop.cu``)
+with ``nvcc``, the host C++ feature loader with ``g++``.
 
 Each ``csrc/<name>.cu`` or ``.cc`` exports plain C functions (no PyTorch
 headers), so one compiler call per source builds a shared library in
@@ -10,6 +11,13 @@ temporary file and renames it, so a concurrent reader never loads a
 partial library. Nothing here runs at import time: this module is
 imported on machines with no CUDA toolkit, where only the plain versions
 of the kernels run.
+
+The kernels' launch counts: a wrapper counts each launch it makes; a
+launch inside a capture goes to the capture's record (:func:`recording`)
+and counts at each run of the graph (:func:`replayed`); where the runs
+of a loop's body are known only on the device, they are counted once
+the value that says so reaches the host (:func:`defer`, :func:`settle`),
+and reading a kernel's ``launches`` waits for it.
 """
 
 from __future__ import annotations
@@ -128,6 +136,9 @@ _RECORDING = threading.local()
 _BY_STREAM: Dict[int, Dict] = {}
 # called with a graph's record (:func:`recording`) at each of its replays
 REPLAY_LISTENERS: List[Callable[[Dict], None]] = []
+# launches whose counts wait for a value on the device (:func:`defer`)
+_PENDING: "collections.deque" = collections.deque()
+_PENDING_LOCK = threading.Lock()
 
 
 class Kernel(Library):
@@ -140,7 +151,19 @@ class Kernel(Library):
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
         super().__init__(name, bind, ".cu", nvcc_path, NVCC_FLAGS)
-        self.launches = 0
+        self._launches = 0
+
+    @property
+    def launches(self) -> int:
+        """The launches so far, those of graph launches still on the
+        device included (:func:`settle` waits for them)."""
+        settle()
+        return self._launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        settle()
+        self._launches = n
 
     def count(self, args: tuple) -> None:
         """One launch by the wrapper, with arguments ``args``. While this
@@ -153,7 +176,7 @@ class Kernel(Library):
             import torch
             record = _BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
         if record is None:
-            self.launches += 1
+            self._launches += 1
         else:
             record[(self, tuple(tuple(a.shape) if hasattr(a, "shape") else a
                                 for a in args))] += 1
@@ -176,12 +199,42 @@ def recording(stream: Optional[int] = None) -> Iterator[Dict]:
         _BY_STREAM.pop(stream, None)
 
 
-def replayed(calls: Dict) -> None:
-    """Count one replay of a graph whose capture recorded ``calls``."""
+def replayed(calls: Dict, times: int = 1) -> None:
+    """Count ``times`` runs of a graph whose capture recorded ``calls``
+    (its replays, or a loop body's passes inside one launch)."""
     for (kernel, _), n in calls.items():
-        kernel.launches += n
-    for listener in list(REPLAY_LISTENERS):
-        listener(calls)
+        kernel._launches += n * times
+    for _ in range(times):
+        for listener in list(REPLAY_LISTENERS):
+            listener(calls)
+
+
+def defer(values, account: Callable[[List], None]) -> None:
+    """Call ``account(values.tolist())`` once the device has computed
+    ``values``, a small tensor on the current stream: copied behind the
+    work before it into pinned memory, with no wait on the host now.
+    Calls that have arrived are made here, the others by :func:`settle`
+    (a kernel's ``launches`` settles before it is read)."""
+    import torch
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    with _PENDING_LOCK:
+        _PENDING.append((done, host, account))
+    settle(wait=False)
+
+
+def settle(wait: bool = True) -> None:
+    """Make the calls of :func:`defer` whose values have arrived; with
+    ``wait``, wait for the others and make them too."""
+    while True:
+        with _PENDING_LOCK:
+            if not _PENDING or not (wait or _PENDING[0][0].query()):
+                return
+            done, host, account = _PENDING.popleft()
+        done.synchronize()
+        account(host.tolist())
 
 
 def host_library(name: str, bind: Callable[[ctypes.CDLL], None]

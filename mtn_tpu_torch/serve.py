@@ -496,7 +496,7 @@ class ServingSession:
 
     def rank_raw(self, hb: HostBatch, cand_ids, include_eos: bool = True):
         """Score candidates on a host batch (``cand_ids``: one list per row
-        of the whole batch): (``rank_batch_raw``'s pair, the valid
+        of the whole batch): (``rank_batch_raw``'s triple, the valid
         rows)."""
         return self._call("rank", hb, cand_ids, include_eos)
 
@@ -661,10 +661,11 @@ class AsyncServer:
     in-flight slot AND either ``turn_batch`` requests are waiting or
     ``max_wait_ms`` has passed since the oldest waiting request.
 
-    ``max_in_flight`` keeps its meaning (batches launched before the
-    oldest is drained), but overlaps nothing yet: the beam loop waits for
-    the device at every step for its early-stop test, so a launch returns
-    with its batch decoded.
+    ``max_in_flight`` batches (beam and rank alike) are launched before
+    the oldest is drained: a graphed batch is one launch that reads
+    nothing on the host, so the dispatch queue hides host latency (the
+    next batch is encoded, uploaded and launched while the device
+    decodes the ones before it).
 
     Backpressure: with ``max_queue > 0``, ``submit`` raises
     :class:`ServerOverloaded` once that many requests are already

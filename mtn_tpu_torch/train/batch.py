@@ -13,6 +13,11 @@ dequantized on the device in f32 as JAX's ``_dequant_int8`` does: about a
 quarter of the f32 bytes cross the host link. A feature cache's blocks
 (``data/feature_cache.py``) are already in transfer form and travel
 as-is: bitwise the uncached transfer.
+
+To a CUDA device every array travels from pinned memory without a wait
+on the host (:func:`upload`), as ``jax.device_put`` returns at once: a
+copy from pageable memory would wait until the stream has run all the
+work queued before it, which would drain the decode batches in flight.
 """
 
 from __future__ import annotations
@@ -51,6 +56,16 @@ def host_quant_int8(f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale
 
 
+def upload(t: torch.Tensor, device: Union[str, torch.device]
+           ) -> torch.Tensor:
+    """CPU tensor ``t`` on ``device``; to a CUDA device through pinned
+    memory, queued on the current stream without a wait on the host (the
+    pinned block is kept until the copy has run)."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _host(a, dtype=None) -> torch.Tensor:
     """A CPU tensor of ``a``; a read-only array (a cached block's
     ``mmap``) is copied first."""
@@ -62,7 +77,7 @@ def _dequant_int8(q: np.ndarray, scale: np.ndarray,
                   device: Union[str, torch.device]) -> torch.Tensor:
     """Send int8 ``q`` and its f32 row scales to ``device`` and
     dequantize there in f32."""
-    return _host(q).to(device).float() * _host(scale).to(device)
+    return upload(_host(q), device).float() * upload(_host(scale), device)
 
 
 def int8_transfer(f: np.ndarray,
@@ -84,8 +99,8 @@ def _features(f, device, feature_dtype: str) -> torch.Tensor:
         return int8_transfer(f, device)
     fdt = torch_dtype(feature_dtype)
     if isinstance(f, BF16Feature):
-        return f.tensor().to(device=device, dtype=fdt)
-    return _host(f, np.float32).to(device=device, dtype=fdt)
+        return upload(f.tensor(), device).to(dtype=fdt)
+    return upload(_host(f, np.float32), device).to(dtype=fdt)
 
 
 def device_batch(hb: HostBatch, device: Union[str, torch.device],
@@ -96,14 +111,14 @@ def device_batch(hb: HostBatch, device: Union[str, torch.device],
     cap = hb.cap
     if cap is None:
         cap = np.ones((hb.query.shape[0], 1), dtype=np.int32)
-    tok = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)
+    tok = lambda a: upload(torch.from_numpy(np.asarray(a, np.int64)), device)
     fts = tuple(_features(f, device, feature_dtype) for f in hb.fts)
     return DeviceBatch(
         query=tok(hb.query), his=tok(hb.his), cap=tok(cap),
         answer_in=tok(hb.answer_in), answer_out=tok(hb.answer_out),
         fts=fts,
         fts_len=tuple(tok(l) for l in hb.fts_len),
-        valid=torch.from_numpy(np.asarray(hb.valid, bool)).to(device),
+        valid=upload(torch.from_numpy(np.asarray(hb.valid, bool)), device),
     )
 
 

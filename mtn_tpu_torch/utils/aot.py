@@ -23,27 +23,33 @@ exports the decode once into an artifact directory, and
   sequences and truncates frames.
 
 Where ``jax.export`` froze the whole beam loop (a ``lax.while_loop``),
-each decode here runs two programs: a **prefix** (encoder, auto-encoder
-chain and every cross-attention K/V of B turns, where the attention
-kernel runs) and a **step** (one decode position, where the FFN kernel
-runs). The step is the function the live loop calls
+the artifact holds two programs for it: a **prefix** (encoder,
+auto-encoder chain and every cross-attention K/V of B turns, where the
+attention kernel runs) and a **step** (one decode position, where the
+FFN kernel runs). The step is the function the live loop calls
 (:mod:`mtn_tpu_torch.decode.steps`), at a 0-d tensor position, with the
 decode state and the KV caches flattened to plain tensors at the
-program boundary; the session drives it with the live loop's early-stop
-test, tiles the prefix's state over the beam or the candidates and
-makes the zeroed caches, as the live loops do. So an artifact's answers
+program boundary. The session wraps them in the live decode's program
+sets (:mod:`mtn_tpu_torch.decode.graphs`), one for each row bucket and
+the rank shape, built at :meth:`AotSession.warmup` (the artifact's
+shapes are frozen, the role of JAX compiling the artifact at load): the
+prefix program tiles the state over the beam or the candidates and
+zeroes the caches, and the loop runs the step under the live loop's
+early-stop test. On the card each decode is then one graph launch, the
+exit test on the device, as JAX's exported loop is one program; on the
+CPU the same sets run their loop on the host. So an artifact's answers
 are the live session's at the same frozen shapes, bit for bit. The
 sample step takes its uniforms as an input, drawn by the live law
-(``draw_seed(seed, fold, position)`` on the session's device). Every
-program takes the model's tensors as its leading inputs, so an artifact
-stores its weights once (``weights.pt``), whatever its number of
-programs.
+(``draw_seed(seed, fold, position)`` on the session's device). A stream
+stays one step program a token, as in JAX. Every program takes the
+model's tensors as its leading inputs, so an artifact stores its
+weights once (``weights.pt``), whatever its number of programs.
 
 Programs: ``decode_b{B}_prefix.pt2`` for each row count used, and
 ``decode_b{B}_step.pt2`` for each row bucket (beam, greedy or sample, by
 ``--decode-style``); ``rank_step.pt2`` with ``--rank N,L`` (one turn's
-state tiled over N candidates of L tokens, the teacher-forced step
-driven by the host, as the live ``_rank``);
+state tiled over N candidates of L tokens, the teacher-forced step, as
+the live ``_rank``);
 ``stream_step_{greedy,sample}.pt2`` (one row) unless ``--stream 0``.
 Rank and stream take the one-row prefix. ``meta.json`` is written last
 with a fresh ``export_id``, which the serving watcher polls.
@@ -78,9 +84,11 @@ import torch
 from mtn_tpu_torch.ops import attention_kernel, ffn_kernel  # noqa: F401
 from mtn_tpu_torch.config import DecodeConfig, _to_jsonable, config_from_dict
 from mtn_tpu_torch.data.vocab import vocab_list, words2ids
-from mtn_tpu_torch.decode.steps import (all_ended, beam_init, beam_open,
-                                        beam_step, completions_to_results,
-                                        cut_rows, detokenize, draw_seed,
+from mtn_tpu_torch.decode.graphs import (BeamPrograms, LoopPrograms,
+                                         RankPrograms, TokenPrograms)
+from mtn_tpu_torch.decode.steps import (beam_init, beam_step,
+                                        completions_to_results, cut_rows,
+                                        detokenize, draw_seed,
                                         gumbel_uniforms, rank_inputs,
                                         rank_step, token_step)
 from mtn_tpu_torch.evalmetrics.retrieval import rank_of
@@ -411,6 +419,51 @@ def export_decode(model_arg: str, out_dir: str, *, batch: int = 8,
 
 
 # -- load and serve ---------------------------------------------------------------
+class _Source:
+    """An artifact's programs at row bucket ``B`` as the one-step
+    functions and prefixes that :mod:`mtn_tpu_torch.decode.graphs`'s
+    program sets take from a live decoder: the state is the prefix
+    program's leaves, the KV caches a flat list of tensors."""
+
+    def __init__(self, session: "AotSession", B: int):
+        self.s, self.B = session, B
+        self.cfg = session.decode_cfg
+        self.vocab_size = session.model_cfg.vocab_size
+        self.pad, self.sos = session._pad, session._sos
+        self.eos, self.unk = session._eos, session.vocab["<unk>"]
+
+    def beam_prefix(self, inputs):
+        cfg = self.cfg
+        state = self.s._tile(self.s._state(self.B, inputs), cfg.beam)
+        carry = beam_init(self.B, cfg, self.s.device, self.pad, self.sos)
+        return state, (*carry, self.s._kv(self.B * cfg.beam, cfg.maxlen))
+
+    def beam_advance(self, state, l, *carry):
+        *carry, kv = carry
+        out = self.s._call(step_blob(self.B), l, *state, *carry, *kv)
+        return (*out[:BEAM_CARRY], list(out[BEAM_CARRY:]))
+
+    def token_prefix(self, inputs):
+        return (self.s._state(self.B, inputs),
+                self.s._kv(self.B, self.cfg.maxlen))
+
+    def token_next(self, state, l, cur, kv, u):
+        u = [] if u is None else [u]
+        return self.s._call(step_blob(self.B), l, cur, *u, *state, *kv)
+
+    def rank_prefix(self, inputs, cand, cand_len):
+        _, N, L = cand.shape
+        rows, feed = rank_inputs(cand, self.sos)
+        return (self.s._tile(self.s._state(1, inputs), N),
+                self.s._kv(N, L), rows, feed, cand_len.reshape(-1),
+                torch.zeros(rows.shape[0], dtype=torch.float32,
+                            device=self.s.device))
+
+    def rank_advance(self, state, l, rows, inputs, lens, total, kv):
+        return self.s._call(RANK_STEP, l, rows, inputs, lens, total, *state,
+                            *kv)
+
+
 class AotSession:
     """Serve an exported artifact.
 
@@ -423,7 +476,13 @@ class AotSession:
     frames are truncated. Artifacts exported with ``rank=(N, L)`` also
     :meth:`rank`, those with stream programs :meth:`stream`; a front end
     routes by ``hasattr`` and answers 501 for what the artifact lacks.
-    :meth:`reload` swaps in a re-exported artifact."""
+    :meth:`reload` swaps in a re-exported artifact.
+
+    Each decode and each rank runs through a program set of
+    :mod:`mtn_tpu_torch.decode.graphs` over the artifact's programs (one
+    per row bucket, and the rank shape): captured and launched as one
+    graph on CUDA, run as they are on the CPU. :meth:`warmup` builds
+    every set; a set not built yet is built at its first batch."""
 
     #: serving front ends serialize an artifact behind one lock
     is_aot = True
@@ -465,6 +524,8 @@ class AotSession:
         self._sos = self.vocab["<sos>"]
         self._eos = self.vocab["<eos>"]
         self._sample_calls = 0
+        self.capture = self.device.type == "cuda"
+        self.sets: Dict[Tuple[str, int], LoopPrograms] = {}
         if self.meta.get("rank"):
             self.rank = self._rank
         if self.meta.get("stream"):
@@ -479,9 +540,6 @@ class AotSession:
 
     def _call(self, name: str, *args):
         return self._program(name)(*self.weights, *args)
-
-    def _positions(self, n: int) -> torch.Tensor:
-        return torch.arange(n, device=self.device)
 
     # -- host-side shape fitting ---------------------------------------------
     def _fit_tokens(self, arr: np.ndarray, L: int, what: str) -> np.ndarray:
@@ -509,7 +567,7 @@ class AotSession:
                 n = 0
         return sizes
 
-    # -- decode loops: the live loops' host halves ------------------------------
+    # -- decode: the program sets over the artifact's programs ----------------
     def _state(self, B: int, inputs) -> List[torch.Tensor]:
         """The decode state of B turns (the prefix program's leaves)."""
         return list(self._call(prefix_blob(B), *inputs))
@@ -528,21 +586,6 @@ class AotSession:
         """Row b*n+k is turn b, as the live loops tile the state."""
         return [t.repeat_interleave(n, dim=0) for t in leaves]
 
-    def _beam(self, B: int, inputs):
-        """(comp_scores, comp_buf, comp_len) of one beam batch."""
-        dcfg = self.decode_cfg
-        state = self._tile(self._state(B, inputs), dcfg.beam)
-        kv = self._kv(B * dcfg.beam, dcfg.maxlen)
-        carry = beam_init(B, dcfg, self.device, self._pad, self._sos)
-        pos = self._positions(dcfg.maxlen)
-        for l in range(dcfg.maxlen):
-            if dcfg.early_stop and not beam_open(carry[1], carry[2], l,
-                                                 dcfg):
-                break
-            out = self._call(step_blob(B), pos[l], *state, *carry, *kv)
-            carry, kv = out[:BEAM_CARRY], out[BEAM_CARRY:]
-        return carry[2:]
-
     def _uniforms(self, sample: bool, fold: int, B: int):
         if not sample:
             return lambda l: []
@@ -550,21 +593,38 @@ class AotSession:
         return lambda l: [gumbel_uniforms((B, V), draw_seed(seed, fold, l),
                                           self.device)]
 
-    def _tokens(self, B: int, inputs, sample: bool, fold: int):
-        """(B, maxlen+1) greedy or sampled tokens with the <sos> prefix."""
-        dcfg = self.decode_cfg
-        state, kv = self._state(B, inputs), self._kv(B, dcfg.maxlen)
-        uniforms = self._uniforms(sample, fold, B)
-        pos = self._positions(dcfg.maxlen)
-        toks = torch.full((B, dcfg.maxlen + 1), self._pad, dtype=torch.int64,
-                          device=self.device)
-        toks[:, 0] = self._sos
-        for l in range(dcfg.maxlen):
-            if dcfg.early_stop and all_ended(toks, self._eos):
-                break
-            toks[:, l + 1] = self._call(step_blob(B), pos[l], toks[:, l],
-                                        *uniforms(l), *state, *kv)
-        return toks
+    def _sampled(self) -> bool:
+        return self.style == "sample" and self.decode_cfg.temperature > 0.0
+
+    @torch.inference_mode()
+    def program_set(self, kind: str, B: int) -> LoopPrograms:
+        """The program set of ``kind`` ("beam", "tokens" or "rank") at row
+        bucket ``B``, built at its first use (a blank request's inputs
+        as its static inputs)."""
+        key = (kind, B)
+        if key not in self.sets:
+            src = _Source(self, B)
+            _, example = self._inputs([Request(question="")], B)
+            if kind == "beam":
+                ps = BeamPrograms(src, example, self.capture)
+            elif kind == "tokens":
+                ps = TokenPrograms(src, example, self._sampled(),
+                                   self.capture)
+            else:
+                cand, clen = self.rank_tensors([], True)
+                ps = RankPrograms(src, example, cand, clen, self.capture)
+            self.sets[key] = ps
+        return self.sets[key]
+
+    def build_programs(self) -> List[Tuple[str, int]]:
+        """Build the program set of every row bucket (and the rank
+        shape's); returns their keys."""
+        kind = "beam" if self.style == "beam_search" else "tokens"
+        for B in self.buckets:
+            self.program_set(kind, B)
+        if self.meta.get("rank"):
+            self.program_set("rank", 1)
+        return list(self.sets)
 
     @torch.inference_mode()
     def respond_batch(self, requests: Sequence[Request]
@@ -576,17 +636,18 @@ class AotSession:
             at += rows
             hb, inputs = self._inputs(chunk, rows)
             if self.style == "beam_search":
-                comp = [t.cpu().numpy() for t in self._beam(rows, inputs)]
+                pool, _ = self.program_set("beam", rows).run(inputs)
+                comp = [t.cpu().numpy() for t in pool]
                 out.extend(DecodeResult(r.texts(self.vlist, self._eos))
                            for r in completions_to_results(*comp, hb.valid))
                 continue
-            sample = self.style == "sample" and \
-                self.decode_cfg.temperature > 0.0
             fold = 0
             if self.style == "sample":
                 fold = self._sample_calls
                 self._sample_calls += 1
-            toks = self._tokens(rows, inputs, sample, fold)
+            uniforms = self._uniforms(self._sampled(), fold, rows)
+            toks = self.program_set("tokens", rows).run(
+                inputs, lambda l: uniforms(l)[0])
             out.extend(DecodeResult([(detokenize(r, self.vlist, self._eos),
                                       0.0)])
                        for r in cut_rows(toks, hb.valid, self._eos))
@@ -630,20 +691,10 @@ class AotSession:
         ``[(candidate, logp, rank), ...]`` in input order."""
         if not candidates:
             raise ValueError("no candidates to rank")
-        rmeta = self.meta["rank"]
         cand, clen = self.rank_tensors(candidates, include_eos)
-        N, L = int(rmeta["n"]), int(rmeta["len"])
         _, inputs = self._inputs([request], 1)
-        state, kv = self._tile(self._state(1, inputs), N), self._kv(N, L)
-        rows, feed = rank_inputs(cand, self._sos)
-        lens = clen.reshape(-1)
-        total = torch.zeros(rows.shape[0], dtype=torch.float32,
-                            device=self.device)
-        pos = self._positions(L)
-        for l in range(L):
-            total = self._call(RANK_STEP, pos[l], rows, feed, lens, total,
-                               *state, *kv)
-        scores = [float(s) for s in total.cpu()[:len(candidates)]]
+        total = self.program_set("rank", 1).run(inputs, cand, clen)
+        scores = [float(s) for s in total[0].cpu()[:len(candidates)]]
         return [(c, s, rank_of(scores, i))
                 for i, (c, s) in enumerate(zip(candidates, scores))]
 
@@ -667,7 +718,7 @@ class AotSession:
             _, inputs = self._inputs([request], 1)
             state, kv = self._state(1, inputs), self._kv(1, smeta["maxlen"])
             uniforms = self._uniforms(sample, fold, 1)
-            pos = self._positions(smeta["maxlen"])
+            pos = torch.arange(smeta["maxlen"], device=self.device)
             cur = torch.full((1,), self._sos, dtype=torch.int64,
                              device=self.device)
         for l in range(int(smeta["maxlen"])):
@@ -701,9 +752,12 @@ class AotSession:
         return self.meta.get("export_id")
 
     def warmup(self, stream: bool = False) -> float:
-        """Load and run the decode programs on one blank request (and the
-        stream programs with ``stream=True``); returns seconds spent."""
+        """Build the program set of every row bucket and the rank shape
+        (:meth:`build_programs`), run the decode on one blank request (and
+        the stream programs with ``stream=True``); returns seconds
+        spent."""
         t0 = time.monotonic()
+        self.build_programs()
         self.respond_batch([Request(question="")])
         if stream and self.meta.get("stream"):
             for _ in self._stream(Request(question="")):

@@ -493,3 +493,74 @@ def test_reload_and_watcher_follow_a_reexport(artifact, tmp_path):
             assert srv.n_reloads >= 1
     finally:
         srv.close()
+
+
+def _graphed_live(live):
+    """``live``'s decoder taking its program sets for CPU tensors, run on
+    the host."""
+    from mtn_tpu_torch.decode.graphs import GraphRunner
+    live.decoder.graphs = GraphRunner(capture=False)
+    live.decoder.graphed = lambda t: True
+    return live
+
+
+def test_warmup_builds_a_program_set_a_bucket(artifact, bridged, served):
+    """``warmup`` builds the set of every row bucket and the rank shape;
+    each chunk of a burst is then one launch of its bucket's loop, and
+    the answers are the live session's through its own program sets,
+    bit for bit, ranks too."""
+    art, meta, _ = artifact
+    session = AotSession(art, device="cpu")
+    assert not session.sets
+    session.warmup()
+    assert sorted(session.sets) == [("beam", 1), ("beam", 4), ("rank", 1)]
+    assert all(not ps.capture for ps in session.sets.values())
+    reqs = (_requests(served[1]) * 2)[:5]             # chunks of 4 and 1
+    before = {k: ps.launches for k, ps in session.sets.items()}
+    got = [r.nbest for r in session.respond_batch(reqs)]
+    assert {k: ps.launches - before[k] for k, ps in session.sets.items()} \
+        == {("beam", 1): 1, ("beam", 4): 1, ("rank", 1): 0}
+    live = _graphed_live(_live(bridged[0], BEAM))
+    want = []
+    for chunk, rows in ((reqs[:4], 4), (reqs[4:], 1)):
+        db = live.to_device(_fitted(session, chunk, rows, live))
+        for _ in range(2):        # the shape's first batch runs eagerly
+            raws = live.decoder.beam_batch_raw(db)
+        want += [r.texts(live.vlist)
+                 for r in live.decoder.beam_results(raws, db.valid)]
+    assert got == want
+    cands = ["he sits on the couch", "a cat", "no"]
+    cand, clen = session.rank_tensors(cands, True)
+    db = live.to_device(_fitted(session, reqs[:1], 1, live))
+    for _ in range(2):            # the shape's first batch runs eagerly
+        scores = live.decoder._rank(db, cand, clen)[0, :len(cands)]
+    assert [s for _, s, _ in session.rank(reqs[0], cands)] == \
+        scores.tolist()
+    assert session.sets[("rank", 1)].launches == 1
+
+
+@pytest.mark.parametrize("style", ["greedy", "sample"])
+def test_token_program_sets_are_the_live_decode(bridged, tmp_path, style):
+    """A greedy or sampled artifact's program set answers as the live
+    decoder's eager loop and its program set, bit for bit, fold after
+    fold."""
+    prefix, feats = bridged
+    dcfg = dict(maxlen=6, decode_style=style, temperature=1.0, top_k=5,
+                sample_seed=3, turn_batch=2)
+    art, _ = _export(bridged, tmp_path, style, dcfg, batch=2, stream=False)
+    session = AotSession(art, device="cpu")
+    session.warmup()                                  # fold 0 for sample
+    assert list(session.sets) == [("tokens", 2)]
+    live = _live(prefix, dcfg)
+    reqs = _requests(feats)[:2]
+    db = live.to_device(_fitted(session, reqs, 2, live))
+    graphed = _graphed_live(_live(prefix, dcfg))
+    for fold in (1, 2):
+        got = [r.nbest[0][0] for r in session.respond_batch(reqs)]
+        eager = (live.decoder.sample_batch(db, fold=fold) if style ==
+                 "sample" else live.decoder.greedy_batch(db))
+        sets = (graphed.decoder.sample_batch(db, fold=fold) if style ==
+                "sample" else graphed.decoder.greedy_batch(db))
+        assert sets == eager
+        assert got == [" ".join(live.vlist[t] for t in r) for r in eager]
+    assert session.sets[("tokens", 2)].launches == 3

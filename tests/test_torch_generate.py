@@ -182,3 +182,58 @@ def test_cli_needs_a_gpu_unless_told_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--model", "x"])
+
+
+def test_in_flight_generate_matches_one_at_a_time_and_jax(setup,
+                                                          monkeypatch):
+    """Every turn its own batch (9 batches of one shape, the decoder's
+    program sets run on the host): 8 batches in flight give the result
+    JSON of 1 in flight and, margin-aware, JAX's ``generate_responses``."""
+    import mtn_tpu_torch.decode.beam as beam_mod
+    from mtn_tpu_torch.cli import generate as gen_mod
+    from mtn_tpu_torch.decode import graphs
+    c, vocab, cfg, params = setup
+    runners = []
+
+    def runner():
+        runners.append(graphs.GraphRunner(capture=False))
+        return runners[-1]
+    monkeypatch.setattr(beam_mod, "GraphRunner", runner)
+    monkeypatch.setattr(BeamDecoder, "graphed", lambda self, t: True)
+    dcfg = dict(DECODE, turn_batch=1, undisclosed_only=False)
+    data = load(c.fea_types, c.fea_path, c.test_set, vocab,
+                include_caption="caption,summary", separate_caption=True)
+    model = port_model(cfg, params)
+    got = {}
+    for depth in (8, 1):
+        monkeypatch.setattr(gen_mod, "MAX_IN_FLIGHT", depth)
+        got[depth], stats = generate_responses(
+            model, data, DecodeConfig(**dcfg), DataConfig(**DATA), vocab,
+            "cpu", log_hyps=True)
+        assert stats["batches"] >= 9
+    assert json.dumps(got[8]) == json.dumps(got[1])
+    assert all(r.captures == 1 and r.eager == 1 for r in runners)
+    jdata = jax_load(c.fea_types, c.fea_path, c.test_set, vocab,
+                     include_caption="caption,summary",
+                     separate_caption=True)
+    want, _, n = jax_generate(params, cfg, jdata, JDecodeConfig(**dcfg),
+                              JDataConfig(**DATA), vocab, log=False)
+    decoder = BeamDecoder(model, DecodeConfig(**dcfg))
+    plans, _ = t_indices(data, 1, max_length=10 ** 9, separate_caption=True)
+    from mtn_tpu_torch.data.vocab import vocab_list
+    nbest = {}
+    for plan in uniform_plans(plans):
+        hb = t_make_batch(data, plan, separate_caption=True,
+                          length_bucket=8, feature_bucket=4, pad_rows_to=1)
+        for qa, res in zip(plan.qa_ids,
+                           decoder.beam_batch(t_device_batch(hb, "cpu"))):
+            nbest[qa] = res.texts(vocab_list(vocab))
+    assert len(nbest) == n
+    for qa, ((vid, t, w), (_, _, g)) in enumerate(
+            zip(_answers(want), _answers(got[8]))):
+        texts = nbest[qa]
+        margin = texts[0][1] - texts[1][1] if len(texts) > 1 else np.inf
+        if margin > EPS:
+            assert g == w, f"{vid} turn {t}"
+        else:
+            assert w in {s for s, sc in texts if texts[0][1] - sc <= EPS}

@@ -367,3 +367,145 @@ def test_cpu_and_meshes_never_reach_the_capture_code(setup, monkeypatch):
         meshed = BeamDecoder(model, dcfg, shardings=types.SimpleNamespace(
             data=data, model=model_axis))
         assert not meshed.graphed(cuda_like)
+
+
+@pytest.mark.parametrize("penalty", [0.0, 1.0])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_loop_exit_count_is_jax_while_loop_count(setup, jax_runs, chunk,
+                                                 penalty, monkeypatch):
+    """The loop's passes (the chunk's and the tail's) are the chunks
+    JAX's ``while_loop`` count needs, ``n_steps`` is that count, and the
+    card's accounting, which sees only the final position, finds the
+    same passes."""
+    cfg, params, jdb, tdb, model = setup
+    kw = dict(maxlen=MAXLEN, beam=3, nbest=3, penalty=penalty)
+    _, jsteps = jax_runs("beam", **kw)
+    dec = _graphed(BeamDecoder(model, DecodeConfig(**kw)), chunk,
+                   monkeypatch)
+    _, raw = _second(dec, lambda: dec.beam_batch_raw(tdb))
+    ps = next(iter(dec.graphs.sets.values()))
+    assert torch.is_tensor(raw.n_steps) and raw.n_steps.dim() == 0
+    assert int(raw.n_steps) == jsteps
+    passes, tail = ps.iterations
+    assert passes + tail == -(-jsteps // chunk)
+    assert tail == int(MAXLEN % chunk != 0 and passes * chunk < jsteps)
+    runs = ps.runs(int(ps.l))
+    assert runs[f"chunk{chunk}"] == passes and runs["prefix"] == 1
+    assert runs.get(f"chunk{MAXLEN % chunk}", 0) == tail or \
+        MAXLEN % chunk == 0
+    assert ps.launches == 1 and ps.replays == 1 + passes + tail
+    dec.beam_results(raw, tdb.valid)
+    assert raw.n_steps == jsteps and isinstance(raw.n_steps, int)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 6])
+def test_token_loop_passes(setup, chunk, monkeypatch):
+    """Greedy's loop makes as many passes as the chunks of the eager
+    loop's steps, and the accounting from the final position agrees."""
+    cfg, params, jdb, tdb, model = setup
+    dec = _graphed(BeamDecoder(model, DecodeConfig(maxlen=6)), chunk,
+                   monkeypatch)
+    _, toks = _second(dec, lambda: dec.greedy_tokens(tdb))
+    eager_steps = next(l for l in range(7) if l == 6 or all_ended(
+        toks[:, :l + 1], dec.eos))
+    ps = next(iter(dec.graphs.sets.values()))
+    assert sum(ps.iterations) == -(-eager_steps // chunk)
+    runs = ps.runs(int(ps.l))
+    assert sum(n for name, n in runs.items() if name != "prefix") == \
+        sum(ps.iterations)
+
+
+class _Device:
+    """The loop as the device runs it: host reads allowed only inside
+    :class:`~mtn_tpu_torch.ops.graph_loop.HostLoop`'s launch."""
+
+    def __init__(self, monkeypatch):
+        self.inside = False
+        self.launches = 0
+        launch = graphs.HostLoop.launch
+
+        def device_launch(loop):
+            self.launches += 1
+            self.inside = True
+            try:
+                launch(loop)
+            finally:
+                self.inside = False
+        monkeypatch.setattr(graphs.HostLoop, "launch", device_launch)
+        for name in ("item", "tolist", "__bool__", "__int__", "__float__",
+                     "numpy"):
+            orig = getattr(torch.Tensor, name)
+
+            def guarded(t, *a, _orig=orig, _name=name, **k):
+                if not self.inside and self.armed:
+                    raise AssertionError(f"host read ({_name}) before "
+                                         "the fetch")
+                return _orig(t, *a, **k)
+            monkeypatch.setattr(torch.Tensor, name, guarded)
+        self.armed = False
+
+
+def test_no_host_read_before_the_fetch(setup, monkeypatch):
+    """A batch on a program set is one launch of the loop and returns
+    with no host read outside it (on the card nothing reads until the
+    fetch): the step count stays a device tensor; greedy, sample and
+    rank alike. The fetched results are the eager loop's."""
+    cfg, params, jdb, tdb, model = setup
+    dcfg = DecodeConfig(maxlen=6, beam=3, nbest=3, penalty=1.0,
+                        temperature=1.0, top_k=8, sample_seed=5)
+    dec = _graphed(BeamDecoder(model, dcfg), 2, monkeypatch)
+    cands = [[[5, 9, 4], [7]]] * tdb.query.shape[0]
+    calls = {"beam": lambda: dec.beam_batch_raw(tdb),
+             "greedy": lambda: dec.greedy_tokens(tdb),
+             "sample": lambda: dec.sample_tokens(tdb, 2),
+             "rank": lambda: dec.rank_batch_raw(tdb, cands)[0]}
+    for fn in calls.values():
+        _second(dec, fn) if not dec.graphs.sets else (fn(), fn())
+    assert len(dec.graphs.sets) == 4
+    device = _Device(monkeypatch)
+    got = {}
+    for name, fn in calls.items():
+        device.armed = True
+        n = device.launches
+        got[name] = fn()
+        device.armed = False
+        assert device.launches == n + 1, name
+    assert torch.is_tensor(got["beam"].n_steps)
+    want = dec.beam_eager(tdb)
+    _assert_same((got["beam"].comp_scores, got["beam"].comp_buf,
+                  got["beam"].comp_len),
+                 (want.comp_scores, want.comp_buf, want.comp_len))
+    assert int(got["beam"].n_steps) == want.n_steps
+    assert torch.equal(got["greedy"], dec.tokens_eager(tdb, "greedy", 0))
+    assert torch.equal(got["sample"], dec.tokens_eager(tdb, "sample", 2))
+    assert torch.equal(got["rank"], dec.rank_batch_raw(tdb, cands)[0])
+
+
+def test_launch_accounting_adds_body_calls_times_passes(setup,
+                                                        monkeypatch):
+    """A launch adds each program's recorded calls times its runs, the
+    chunk's and the tail's from the final position (the card's
+    accounting), and tells the listeners once a run."""
+    cfg, params, jdb, tdb, model = setup
+    dec = _graphed(BeamDecoder(model, DecodeConfig(maxlen=MAXLEN, beam=3,
+                                                   nbest=3)), 3, monkeypatch)
+    _second(dec, lambda: dec.beam_batch_raw(tdb))
+    ps = next(iter(dec.graphs.sets.values()))
+    kernel = _build.Kernel("probe", lambda lib: None)
+    for name, n in (("prefix", 5), ("chunk3", 7), ("chunk2", 11)):
+        ps.programs[name].calls = {(kernel, ((4, 4),)): n}
+    heard = []
+    _build.REPLAY_LISTENERS.append(heard.append)
+    try:
+        ps._account(8)       # 2 passes of 3 steps, then the tail of 2
+        assert kernel.launches == 5 + 2 * 7 + 11
+        ps._account(6)       # 2 passes, no tail
+        assert kernel.launches == 30 + 5 + 2 * 7
+        ps._account(3)       # 1 pass: the exit after it
+        assert kernel.launches == 49 + 5 + 7
+    finally:
+        _build.REPLAY_LISTENERS.remove(heard.append)
+    assert len(heard) == 4 + 3 + 2
+    assert ps.iterations == [1, 0]
+    _build.replayed({(kernel, ()): 2}, times=3)
+    assert kernel.launches == 61 + 6

@@ -523,3 +523,32 @@ def test_async_server_needs_a_beam_session(bridged):
         == 0.0
     with pytest.raises(ValueError, match="beam_search"):
         AsyncServer(greedy)
+
+
+def test_async_server_in_flight_answers_as_one_at_a_time(bridged):
+    """``max_in_flight`` 2 overlaps the batches and changes no answer:
+    beam and rank requests through the decoder's program sets (run on
+    the host here) give with 2 in flight what they give with 1, and what
+    the session answers alone."""
+    from mtn_tpu_torch.decode.graphs import GraphRunner
+    prefix, feats, _ = bridged
+    session = _port(prefix, dcfg=dict(maxlen=6, beam=2, nbest=2,
+                                      turn_batch=4))
+    session.decoder.graphs = GraphRunner(capture=False)
+    session.decoder.graphed = lambda t: True
+    cands = ["he sits on the couch", "a dog walks", "no"]
+    reqs = [Request(question=q, caption="a man reads a book",
+                    features=feats) for q in QUESTIONS * 2]
+    runs = []
+    for depth in (2, 1, 2):
+        srv = AsyncServer(session, max_in_flight=depth, max_wait_ms=2000)
+        try:
+            futs = [srv.submit(r) for r in reqs] + \
+                [srv.submit_rank(r, cands) for r in reqs[:4]]
+            runs.append([f.result(timeout=300) for f in futs])
+        finally:
+            srv.stop()
+    assert runs[0] == runs[1] == runs[2]
+    assert session.decoder.graphs.captures >= 1
+    alone = [session.respond_batch([r])[0] for r in reqs]
+    assert [g.nbest for g in runs[0][:len(reqs)]] == [a.nbest for a in alone]
