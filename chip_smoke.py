@@ -40,8 +40,9 @@
    device time per call, and the device's idle share. Every decode batch
    of the one-process paths runs as captured CUDA graphs once its shape
    has come back (``mtn_tpu_torch/decode/graphs.py``; a shape's first
-   batch, meshes, streams and the AOT session run eagerly), and the
-   kernels' launch counts add each graph's launches at every replay.
+   batch and meshes run eagerly), each token stream as a captured prefix
+   and a captured one-token step replayed once a step, and the kernels'
+   launch counts add each graph's launches at every replay.
    ``[graphs]``: the flagship in bf16 and f32 (both kernels) on the
    64-turn set, 32 turns a batch: beam (early stop on and off: n-best
    tokens, scores, lengths and step counts), greedy, sampled and rank
@@ -79,8 +80,14 @@
    temperature 1, top-k 50, top-p 0.9, through both kernels, counted;
    the same seed again bitwise equal; temperature 0 bitwise equal to
    greedy; 32,000 draws of the card's generator against their softmax by
-   chi-square), ``[stream]`` (the greedy and sample streams of one turn
-   batch reassembled, equal to the batch decoders token for token),
+   chi-square), ``[stream]`` (the greedy and sample streams, folds 0 and
+   3, of one turn batch in bf16 and f32, each style's second stream
+   captured: every graphed stream step for step the eager stream's and,
+   reassembled, the batch decoders' token for token, one program run a
+   warm step, launches equal to the eager stream's; host ms a step both
+   ways, capture seconds and pool bytes; one warm graphed stream under
+   torch.profiler: device µs a step, the kernels' counts equal to the
+   profiler's),
    ``[rank]`` (``scripts/make_rank_candidates.py`` with 100 options, then
    ``python -m mtn_tpu_torch.cli.rank`` at 2 turns a batch through both
    kernels, counted, with its retrieval block and its decoder's shapes
@@ -101,6 +108,9 @@
    decoder's shapes and captures in that load; for bf16 the load again
    through the eager loops, then graphed and warm), /v1/rank with
    100 candidates, a reassembled /v1/stream equal to the greedy decode,
+   then again captured, warm (its launches counted), through the eager
+   loop and, for bf16, beside the 32-request load's ``AsyncServer``
+   batches, each answer the same, with host ms a step of each,
    /admin/reload, /metrics; kernel launches counted over the HTTP
    traffic: both kernels for bf16, attention and never the FFN for
    int8), ``[serve-parallel]`` (two ranks on the card over gloo as 2x1
@@ -118,7 +128,9 @@
    kernel, host ms per step of both; an in-process ``serve_http`` over
    the artifact from 8 threads, each answer bitwise the live 1-row
    decode, kernel launches counted over the HTTP traffic, /v1/rank,
-   /v1/stream; the f32 artifact on the card within 1e-3 of the CPU's;
+   /v1/stream; the artifact's greedy stream on its stream set equal to
+   the live decoder's stream at the frozen shapes, eager and graphed,
+   with host ms a step of each; the f32 artifact on the card within 1e-3 of the CPU's;
    an int8-fp-head artifact at 2 blocks bitwise its live session,
    attention launched and the FFN kernel never);
 7. ``[grad]``: for each kernel in f32 and bf16, the output and the
@@ -1411,34 +1423,110 @@ def flagship_batch(corpus: dict, rows: int):
             load_checkpoint(corpus["prefix"])[0])
 
 
-def stream_phase(torch, corpus: dict) -> dict:
-    """One flagship turn batch (32 turns, bf16, both kernels): the greedy
-    stream and the sample stream (folds 0 and 3) reassembled against
-    ``greedy_batch`` and ``sample_batch``, token for token; host ms per
-    streamed step."""
+STREAM_CASES = (("greedy", 0), ("sample", 0), ("sample", 3))
+
+
+def stream_sets(dec) -> dict:
+    """``dec``'s stream program sets by style."""
+    from mtn_tpu_torch.decode.graphs import StreamPrograms
+    return {key[1]: ps for key, ps in dec.graphs.sets.items()
+            if isinstance(ps, StreamPrograms)}
+
+
+def stream_run(torch, ak, fk, dec, db, style: str, fold: int) -> dict:
+    """One stream of ``db`` through ``dec`` (its yields, steps and host
+    ms a step; its last step's read waits for the device), with the
+    kernels' launches (their counts set to 0 just before it and read
+    just after) and the program runs of its stream set over it."""
+    before = {k: ps.replays for k, ps in stream_sets(dec).items()}
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    ys = [y.tolist() for y in dec.stream_tokens(db, style, fold)]
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    runs = sum(ps.replays - before.get(k, 0)
+               for k, ps in stream_sets(dec).items())
+    return dict(yields=ys, steps=len(ys), host_ms_per_step=ms / len(ys),
+                launches=launches, program_runs=runs)
+
+
+def stream_phase(torch, ak, fk, corpus: dict) -> dict:
+    """One flagship turn batch (32 turns, both kernels), in bf16 and f32:
+    the greedy stream and the sample stream (folds 0 and 3) through the
+    eager loop and through the captured stream programs (each style's
+    first stream eager, its second captured, then warm), every graphed
+    stream step for step the eager stream's and, reassembled, the batch
+    decoders' (``greedy_batch``, ``sample_batch``) token for token; host
+    ms a step of both, program runs (graph launches) a warm step, the
+    sets' capture seconds and pool bytes; one warm graphed greedy stream
+    under torch.profiler (device µs a step; the kernels' counts against
+    the profiler's)."""
     from mtn_tpu_torch.config import DecodeConfig
     from mtn_tpu_torch.decode.beam import BeamDecoder
     from mtn_tpu_torch.train.batch import device_batch
     from mtn_tpu_torch.weights import load_model
     hb, _, _, cfg, sd = flagship_batch(corpus, 32)
-    cfg.dtype = "bfloat16"
     cfg.use_pallas_attention = cfg.use_pallas_ffn = True
-    db = device_batch(hb, "cuda", "bfloat16")
-    dec = BeamDecoder(load_model(cfg, sd, "cuda"), DecodeConfig(
-        maxlen=30, decode_style="sample", temperature=1.0, top_k=50,
-        top_p=0.9))
-    n = int(db.valid.sum())
     out = {}
-    for style, fold in (("greedy", 0), ("sample", 0), ("sample", 3)):
-        want = (dec.greedy_batch(db) if style == "greedy"
-                else dec.sample_batch(db, fold=fold))
-        t0 = time.perf_counter()
-        got, steps = assemble(dec.stream_tokens(db, style, fold), n,
-                              dec.eos)
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        out[f"{style}_fold{fold}"] = dict(equal=got == want, steps=steps,
-                                          host_ms_per_step=ms,
-                                          tokens=sum(map(len, got)))
+    for dtype in ("bfloat16", "float32"):
+        cfg.dtype = dtype
+        db = device_batch(hb, "cuda", dtype)
+        dec = BeamDecoder(load_model(cfg, sd, "cuda"), DecodeConfig(
+            maxlen=30, decode_style="sample", temperature=1.0, top_k=50,
+            top_p=0.9))
+        twin = eager_twin(dec)
+        n = int(db.valid.sum())
+        sets = {}
+        for style in ("greedy", "sample"):
+            first = stream_run(torch, ak, fk, dec, db, style, 0)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            captured = stream_run(torch, ak, fk, dec, db, style, 0)
+            torch.cuda.empty_cache()
+            ps = stream_sets(dec)[style]
+            sets[style] = dict(
+                capture_s=ps.capture_s(),
+                pool_bytes=torch.cuda.memory_reserved() - reserved,
+                first_equals_captured=first["yields"] == captured["yields"],
+                first_program_runs=first["program_runs"])
+        rows = {}
+        for style, fold in STREAM_CASES:
+            want = (dec.greedy_batch(db) if style == "greedy"
+                    else dec.sample_batch(db, fold=fold))
+            eager = stream_run(torch, ak, fk, twin, db, style, fold)
+            graphed = stream_run(torch, ak, fk, dec, db, style, fold)
+            got, steps = assemble(graphed["yields"], n, dec.eos)
+            rows[f"{style}_fold{fold}"] = dict(
+                equal=got == want, bitwise_eager=graphed["yields"]
+                == eager["yields"], steps=steps, tokens=sum(map(len, got)),
+                host_ms_per_step=graphed["host_ms_per_step"],
+                eager_host_ms_per_step=eager["host_ms_per_step"],
+                program_runs_per_step=(graphed["program_runs"] - 1) / steps,
+                launches=graphed["launches"],
+                eager_launches=eager["launches"])
+        out[dtype] = dict(rows, sets=sets, runner=runner_counts(
+            [dec.graphs]))
+        if dtype == "bfloat16":
+            prof = profiled_batches(torch, ak, fk, lambda: list(
+                dec.stream_tokens(db, "greedy", 0)))
+            steps = rows["greedy_fold0"]["steps"]
+            busy = prof["device_busy_ms"]
+            out["profile"] = dict(
+                prof, steps=steps, host_ms_per_step=prof["wall_ms"] / steps,
+                device_us_per_step=busy * 1e3 / steps
+                if isinstance(busy, float) else busy)
+        del dec, twin, db
+        torch.cuda.empty_cache()
+    cases = [out[d][c] for d in ("bfloat16", "float32")
+             for c in (f"{s}_fold{f}" for s, f in STREAM_CASES)]
+    out["ok"] = bool(
+        all(c["equal"] and c["bitwise_eager"]
+            and c["program_runs_per_step"] == 1.0
+            and c["launches"] == c["eager_launches"] for c in cases)
+        and all(v["first_equals_captured"] and v["first_program_runs"] == 0
+                for d in ("bfloat16", "float32")
+                for v in out[d]["sets"].values())
+        and out["profile"]["counts_match"])
     return out
 
 
@@ -1794,12 +1882,14 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     bodies = serve_bodies(corpus, SERVE_REQUESTS)
     launches, calls = {"attention": 0, "ffn": 0}, {}
 
-    def counted(fn):
+    def counted(fn, sink=None):
         result, n, by_shape = run_path(torch, ak, fk, fn)
         for name, count in n.items():
             launches[name] += count
         for label, count in by_shape.items():
             calls[label] = calls.get(label, 0) + count
+        if sink is not None:
+            sink.update(n)
         return result
 
     srv = start_server(session, port=0, max_wait_ms=20.0)
@@ -1852,6 +1942,9 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
                   for t in session.decoder.greedy_batch(db)[0]]
         out["stream"] = dict(tokens=len(tokens or []),
                              equals_greedy=tokens == greedy)
+        out["stream"].update(served_streams(
+            torch, ak, fk, session, base, bodies, tokens, counted,
+            in_flight=not quant))
 
         code, reloaded = http(base, "/admin/reload", {})
         code2, again = counted(lambda: http(base, "/v1/respond", one))
@@ -1866,11 +1959,70 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     out["ok"] = bool(
         out["respond_equals_session"] and out["answered"] == SERVE_REQUESTS
         and out["batch_launches"] < SERVE_REQUESTS and out["rank"]["ok"]
-        and out["stream"]["equals_greedy"] and out["reload"]["same_answer"]
+        and out["stream"]["equals_greedy"] and out["stream"]["ok"]
+        and out["reload"]["same_answer"]
         and "mtn_requests_total" in metrics
         and (quant or out["async_in_flight"]["bitwise"]))
     del session, srv
     torch.cuda.empty_cache()
+    return out
+
+
+def timed_stream(base: str, body) -> tuple:
+    """A /v1/stream's words and its host ms a decode step (the words and
+    the step that emitted <eos>, or maxlen 30)."""
+    t0 = time.perf_counter()
+    words = stream_words(base, body)
+    ms = (time.perf_counter() - t0) * 1e3
+    return words, ms / min(len(words or []) + 1, 30)
+
+
+def served_streams(torch, ak, fk, session, base, bodies, first, counted,
+                   in_flight: bool) -> dict:
+    """The [serve] phase's /v1/stream of ``bodies[2]`` after its first
+    (eager) one, whose words are ``first``: again, captured into its
+    stream set, then warm on it (its launches counted), then through the
+    decoder's eager loop, every answer ``first``; with ``in_flight``,
+    once more while the 32-request load keeps ``AsyncServer`` batches in
+    flight (its answers counted). Host ms a step of each; the stream
+    sets' capture seconds and program runs a warm step."""
+    import threading
+    from mtn_tpu_torch.decode.graphs import StreamPrograms
+    dec = session.decoder
+    captured, _ = timed_stream(base, bodies[2])    # the shape's second
+    sets = [ps for ps in dec.graphs.sets.values()
+            if isinstance(ps, StreamPrograms)]
+    runs = sum(ps.replays for ps in sets)
+    box = {}
+    graphed, ms = counted(lambda: timed_stream(base, bodies[2]), box)
+    runs = sum(ps.replays for ps in sets) - runs
+    dec.graphed = lambda t: False
+    try:
+        eager, eager_ms = timed_stream(base, bodies[2])
+    finally:
+        del dec.graphed
+    steps = min(len(graphed or []) + 1, 30)
+    out = dict(graphed_equals_eager=first is not None and
+               captured == graphed == eager == first,
+               host_ms_per_step=ms, eager_host_ms_per_step=eager_ms,
+               program_runs_per_step=(runs - 1) / steps, launches=box,
+               capture_s=[ps.capture_s() for ps in sets])
+    ok = out["graphed_equals_eager"] and out["program_runs_per_step"] == 1
+    if in_flight:
+        load = {}
+        thread = threading.Thread(target=lambda: load.update(
+            concurrent_respond(base, bodies)))
+        thread.start()
+        time.sleep(0.05)
+        words, flight_ms = timed_stream(base, bodies[2])
+        thread.join(600)
+        out["in_flight"] = dict(
+            host_ms_per_step=flight_ms, equals=words == first,
+            load_answered=load.get("answered"),
+            load_requests_per_sec=load.get("requests_per_sec"))
+        ok = ok and words == first and load.get("answered") == \
+            SERVE_REQUESTS
+    out["ok"] = bool(ok)
     return out
 
 
@@ -2305,6 +2457,47 @@ def aot_int8(torch, ak, fk, corpus, root, reqs, lengths) -> dict:
     return out
 
 
+def aot_stream(torch, ak, fk, session, live, req) -> dict:
+    """The artifact's greedy stream of ``req`` on its stream set (built at
+    ``warmup``), its launches counted, against the live decoder's stream
+    of the same request at the artifact's frozen shapes (one row): the
+    eager loop, then three graphed streams (the shape's first eager, its
+    second captured, its third warm); the same words from each, host ms
+    a step of each, the artifact's program runs a step."""
+    import contextlib as cl
+    db = aot_fitted(session, live, [req], 1)
+    eos = live.vocab["<eos>"]
+
+    def live_words(dec):
+        words, t0 = [], time.perf_counter()
+        with cl.closing(dec.stream_tokens(db, "greedy")) as steps:
+            for y in steps:
+                if int(y[0]) == eos:
+                    break
+                words.append(live.vlist[int(y[0])])
+        return words, (time.perf_counter() - t0) * 1e3
+    ps = session.sets[("stream_greedy", 1)]
+    runs = ps.replays
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    got = list(session.stream(req))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    runs = ps.replays - runs
+    eager, eager_ms = live_words(eager_twin(live.decoder))
+    graphed = [live_words(live.decoder) for _ in range(3)]
+    steps = min(len(got) + 1, session.meta["stream"]["maxlen"])
+    out = dict(words=len(got), steps=steps, host_ms_per_step=ms / steps,
+               live_eager_host_ms_per_step=eager_ms / steps,
+               live_graphed_host_ms_per_step=graphed[-1][1] / steps,
+               equals_live=all(w == got for w, _ in graphed + [(eager, 0)]),
+               program_runs_per_step=(runs - 1) / steps, launches=launches,
+               capture_s=ps.capture_s())
+    out["ok"] = bool(out["equals_live"] and out["program_runs_per_step"]
+                     == 1 and min(launches.values()) > 0)
+    return out
+
+
 def op_dispatch(torch, ak, fk) -> dict:
     """Host-inclusive ms per call (200 calls, CUDA events) of each kernel
     through its ``torch.library`` op (``ak.attention``, ``fk.ffn``) and
@@ -2410,6 +2603,8 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
                calls_by_shape=aot_calls, host_ms_per_step=host_ms,
                wall_s=walls)
 
+    out["stream"] = aot_stream(torch, ak, fk, session, live, reqs[2])
+
     # each request alone (the b1 programs), as serve_http --aot decodes it
     single = []
     for r in reqs:
@@ -2469,6 +2664,7 @@ def aot_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
         and min(aot_launches.values()) > 0 and h["bitwise_live"]
         and h["aot"] is True and min(h["launches"].values()) > 0
         and h["rank_ok"] and h["stream_equals_session"]
+        and out["stream"]["ok"]
         and out["reference"]["ok"] and out["int8"]["ok"])
     del live
     torch.cuda.empty_cache()
@@ -4292,10 +4488,15 @@ def main() -> int:
         if min(sample["launches"].values()) <= 0:
             return fail("a kernel never launched on the sample path: "
                         f"{sample['launches']}")
-        stream = stream_phase(torch, corpus)
-        print(f"[stream] {json.dumps(stream)}")
-        if not all(s["equal"] for s in stream.values()):
-            return fail("a reassembled stream differs from its batch decode")
+        stream = stream_phase(torch, ak, fk, corpus)
+        for key in ("bfloat16", "float32", "profile"):
+            print(f"[stream] {key} {json.dumps(stream[key])}")
+        print(f"[stream] {card}")
+        if not stream["ok"]:
+            return fail("stream: a graphed stream differs from the eager "
+                        "stream or its batch decode, a warm step is not one "
+                        "replay, or the kernels' counts differ from the "
+                        "eager stream's or the profiler's")
         ranked = rank_phase(torch, ak, fk, corpus, root)
         for line in ranked["block"]:
             print(f"[rank] {line}")
@@ -4479,6 +4680,8 @@ def main() -> int:
                         m: [n[name] for n in sp[m]["launches"]]
                         for m in ("2x1", "1x2")},
                     aot_launches=aot["http"]["launches"][name],
+                    stream_launches=stream["bfloat16"]["greedy_fold0"][
+                        "launches"][name],
                     int8_launches=sum(int8[q]["launches"][name]
                                       for q in INT8_MODES),
                     train_launches=train_launches[name],

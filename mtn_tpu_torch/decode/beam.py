@@ -31,8 +31,14 @@ runs the eager loop. Everywhere else (the CPU, a mesh, whose
 collectives go over gloo and cannot be captured) the eager loops run
 (:meth:`BeamDecoder.beam_eager`, :meth:`~BeamDecoder.tokens_eager`,
 :meth:`~BeamDecoder.rank_eager`), their early-stop test on the host:
-one device-to-host sync per step. The two give bitwise equal results;
-streaming is always eager (each step goes to the host anyway).
+one device-to-host sync per step. The two give bitwise equal results.
+A token stream runs the same way: on a CUDA device without a mesh, a
+prefix program and a one-token step program replayed once a step
+(:class:`~mtn_tpu_torch.decode.graphs.StreamPrograms`, JAX's two jitted
+stream programs), each step's tokens read to the host; a shape's first
+stream, and a second stream of a key whose set an open stream holds,
+run eagerly (:meth:`BeamDecoder.stream_eager`), as every stream does on
+the CPU and under a mesh (each step gathered over the data ranks).
 
 Sampling transforms the step's log-probs exactly as JAX's
 ``_sample_transform`` does (temperature, top-k, top-p, in f32) and draws
@@ -74,7 +80,7 @@ from mtn_tpu_torch.decode.steps import (NEG_INF, BeamResult,  # noqa: F401
                                         rank_inputs, rank_step,
                                         sample_transform, token_init,
                                         token_step, top_k)
-from mtn_tpu_torch.decode.graphs import GraphRunner, fetching
+from mtn_tpu_torch.decode.graphs import GraphRunner, eager_stream, fetching
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
 from mtn_tpu_torch.parallel.collectives import gather_rows
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks, upload
@@ -323,30 +329,33 @@ class BeamDecoder:
         A row's yields, cut at its first <eos>, equal its greedy_batch /
         sample_batch output (same step, same next-token rule). Each step
         costs one device-to-host copy: tokens appear as they are decoded.
-        Under a data axis the rows are the whole batch's, gathered at
-        every step, and every rank yields them."""
+        Captured programs where :meth:`graphed`, else
+        :meth:`stream_eager`. Under a data axis the rows are the whole
+        batch's, gathered at every step, and every rank yields them."""
         if style not in ("greedy", "sample"):
             raise ValueError(f"stream_tokens: style {style!r} "
                              "(beam n-bests cannot stream)")
-        dev = batch.query.device
-        B = batch.query.shape[0]
-        with torch.inference_mode():
-            state, self_kv = self.token_prefix(batch)
-            pos = self._positions(self.cfg.maxlen, dev)
-        step = self._stepper(state)
-        uniforms = self._uniforms(style, fold, B, dev)
+        steps = (self.graphs.stream(self, batch, style, fold)
+                 if self.graphed(batch.query)
+                 else self.stream_eager(batch, style, fold))
         valid = np.asarray(self.gather_rows(batch.valid).cpu())
-        cur = torch.full((B,), self.sos, dtype=torch.int64, device=dev)
         done = ~valid
-        for l in range(self.cfg.maxlen):
-            with torch.inference_mode():
-                cur = token_step(step, pos[l], cur, self_kv, uniforms(l),
-                                 self.cfg)
-                host = self.gather_rows(cur).cpu().numpy()
-            yield host[valid]
-            done |= host == self.eos
-            if done.all():
-                return
+        try:
+            for host in steps:
+                yield host[valid]
+                done |= host == self.eos
+                if done.all():
+                    return
+        finally:
+            steps.close()   # gives a held program set back
+
+    def stream_eager(self, batch: DeviceBatch, style: str,
+                     fold: int) -> Iterator[np.ndarray]:
+        """The eager stream: each step's tokens of every row (the whole
+        batch's under a data axis), read to the host."""
+        B = batch.query.shape[0]
+        return eager_stream(self, batch, self._uniforms(
+            style, fold, B, batch.query.device), self.gather_rows)
 
     # -- discriminative candidate ranking --------------------------------
     @torch.inference_mode()

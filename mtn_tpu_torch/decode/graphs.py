@@ -1,6 +1,8 @@
 """Each decode batch on a CUDA device as one device program: the
 counterpart of ``jax.jit`` over ``mtn_tpu``'s ``beam_fn``, ``greedy_fn``,
-``sample_fn`` and ``rank_fn`` (``mtn_tpu/decode/beam.py``).
+``sample_fn`` and ``rank_fn`` (``mtn_tpu/decode/beam.py``); and each
+token stream as two, a prefix and a one-token step
+(:class:`StreamPrograms`, ``_build_stream``'s two jitted programs).
 
 A :class:`GraphRunner` (one per
 :class:`~mtn_tpu_torch.decode.beam.BeamDecoder`) keeps one program set
@@ -38,12 +40,23 @@ the eager loop draws it (``gumbel_uniforms(draw_seed(seed, fold, l))``),
 into a static ``(maxlen, B, V)`` input: every draw is bitwise the eager
 loop's.
 
+A stream (:meth:`GraphRunner.stream`) has no loop program: the host
+drives its steps, as JAX's ``stream_tokens`` does. Each step is one
+replay of the step program, its (B,) tokens copied behind it into
+pinned memory and read after that copy's event alone; a sampled step's
+uniforms are drawn before its replay, one position at a time (a stream
+usually ends early), by the same law. A stream holds its set from its
+first yield to its last: the cache never drops a held set, a second
+stream of the same key opened meanwhile runs eagerly, and the runner's
+lock is taken for each replay only, so batches run between the steps.
+
 On CUDA each program is a PyTorch capture, taken (under the caller's
 ``torch.inference_mode``) after one eager run of the prefix and one
 step on a side stream, which builds and loads the kernels and sets their
-attributes; the captures of a set share one memory pool and are never
-replayed on their own. :class:`~mtn_tpu_torch.ops.graph_loop.GraphLoop`
-copies them into one executable graph, the loop as a WHILE node and the
+attributes; the captures of a set share one memory pool, and a decode
+set's are never replayed on their own:
+:class:`~mtn_tpu_torch.ops.graph_loop.GraphLoop` copies them into one
+executable graph, the loop as a WHILE node and the
 tail as an IF node whose conditions a one-thread kernel sets on the
 device (``csrc/graph_loop.cu``). A batch is then one copy into the
 static inputs, one graph launch and one clone of the outputs, all
@@ -93,8 +106,9 @@ import functools
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mtn_tpu_torch.decode.steps import (all_ended_t, beam_open_t,
@@ -521,6 +535,93 @@ class RankPrograms(LoopPrograms):
         return self.total.reshape(self.cand.shape[:2]).clone()
 
 
+def eager_stream(src, batch, uniforms: Callable[[int], Optional[
+        torch.Tensor]], gather: Callable = lambda t: t
+                 ) -> Iterator[np.ndarray]:
+    """The eager token stream of ``src`` (a decoder or an artifact's
+    source): ``src.token_prefix(batch)``, then one ``src.token_next`` a
+    position after ``<sos>``, each step's (B,) tokens (``gather``-ed over
+    a mesh's data ranks) read to the host and yielded."""
+    dev, B = _flat(batch)[0].device, _flat(batch)[0].shape[0]
+    with torch.inference_mode():
+        state, self_kv = src.token_prefix(batch)
+        pos = torch.arange(src.cfg.maxlen, device=dev)
+        cur = torch.full((B,), src.sos, dtype=torch.int64, device=dev)
+    for l in range(src.cfg.maxlen):
+        with torch.inference_mode():
+            cur = src.token_next(state, pos[l], cur, self_kv, uniforms(l))
+            host = gather(cur).cpu().numpy()
+        yield host
+
+
+class StreamPrograms(ProgramSet):
+    """A token stream, JAX's ``_build_stream``: a prefix program
+    (``token_prefix``, ``cur`` = ``<sos>``, the position ``l`` = 0) and a
+    one-token step program (``token_next`` at ``l``, then ``cur`` takes
+    the token and ``l`` advances), each replayed on its own: the host
+    drives the loop and reads each step's tokens, as it reads each of
+    JAX's. A sampled set takes the step's (B, V) uniforms as a static
+    input, drawn before each replay by the eager stream's law. ``held``:
+    a stream runs on the set (between its first and its last yield); a
+    held set is never a cache's victim, and no other stream takes it."""
+
+    def __init__(self, src, batch, sampled: bool, capture: bool):
+        super().__init__(batch, capture)
+        B = _flat(batch)[0].shape[0]
+        self.cfg = dataclasses.replace(src.cfg)
+        self.u = (torch.zeros((B, src.vocab_size), dtype=torch.float32,
+                              device=self.device) if sampled else None)
+        self.host = (torch.empty(B, dtype=torch.int64, pin_memory=True)
+                     if capture else None)
+        self.held = False
+        self._build([lambda: self._prefix(src), lambda: self._step(src)],
+                    {"prefix": lambda: self._prefix(src),
+                     "step": lambda: self._step(src)})
+
+    def _prefix(self, src) -> None:
+        B = _flat(self.batch)[0].shape[0]
+        self.state, self.self_kv = src.token_prefix(self.batch)
+        self.cur = torch.full((B,), src.sos, dtype=torch.int64,
+                              device=self.device)
+        self.l = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def _step(self, src) -> None:
+        self.cur.copy_(src.token_next(self.state, self.l, self.cur,
+                                      self.self_kv, self.u))
+        self.l.add_(1)
+
+    def stream(self, batch, uniforms: Callable[[int], Optional[
+            torch.Tensor]], lock=None) -> Iterator[np.ndarray]:
+        """Each step's (B,) host tokens of ``batch`` (``maxlen`` steps;
+        the caller stops early). The caller has set ``held``; it is
+        cleared when the stream ends, raises or is closed. ``lock`` is
+        taken around each replay and not across a yield, nor while the
+        host waits for the step's tokens."""
+        lock = lock if lock is not None else contextlib.nullcontext()
+        try:
+            with lock, torch.inference_mode():
+                self.load(batch)
+                self.run_program("prefix")
+            for l in range(self.cfg.maxlen):
+                u = uniforms(l)
+                done = None
+                with lock, torch.inference_mode():
+                    if self.u is not None:
+                        self.u.copy_(u)
+                    self.run_program("step")
+                    if self.capture:
+                        # behind the replay into pinned memory: the wait
+                        # below is for this copy alone
+                        self.host.copy_(self.cur, non_blocking=True)
+                        done = _ready()
+                if done is not None:
+                    done.synchronize()
+                yield (self.cur if done is None else self.host).numpy().copy()
+        finally:
+            with lock:
+                self.held = False
+
+
 class ProgramCache:
     """Program sets by key, and the policy that admits them (see the
     module's docstring): at most ``max_sets`` kept, shapes counted up to
@@ -538,10 +639,12 @@ class ProgramCache:
         self.seen: "OrderedDict[tuple, int]" = OrderedDict()
         self.batches = self.captures = self.evictions = self.eager = 0
 
-    def _victim(self) -> tuple:
+    def _victim(self) -> Optional[tuple]:
         """The key of the set a new shape would replace: the least
-        recently used."""
-        return next(iter(self.sets))
+        recently used that no open stream holds (None if they all are
+        held)."""
+        return next((k for k, ps in self.sets.items()
+                     if not getattr(ps, "held", False)), None)
 
     def _set(self, key: tuple, make: Callable[[], ProgramSet]
              ) -> Optional[ProgramSet]:
@@ -558,7 +661,8 @@ class ProgramCache:
         if ps is None:
             full = len(self.sets) >= self.max_sets
             victim = self._victim() if full else None
-            if n < 2 or (full and n <= self.margin * self.seen[victim]):
+            if n < 2 or (full and (victim is None or n <= self.margin
+                                   * self.seen[victim])):
                 self.eager += 1
                 return None
             if full:
@@ -632,3 +736,30 @@ class GraphRunner(ProgramCache):
                 return dec.rank_eager(batch, cand, cand_len), None
             scores = ps.run(batch, cand, cand_len)
             return scores, _ready() if ps.capture else None
+
+    def stream(self, dec, batch, style: str, fold: int
+               ) -> Iterator[np.ndarray]:
+        """``BeamDecoder.stream_tokens``' (B,) host tokens a step: through
+        the :class:`StreamPrograms` set of the key where one is kept or
+        admitted and no other open stream holds it, else the decoder's
+        eager stream (counted in ``eager``). The runner's lock is taken
+        for each replay, so batches run between a stream's steps."""
+        cfg = dec.cfg
+        sampled = style == "sample" and cfg.temperature > 0.0
+        key = ("stream", "sample" if sampled else "greedy",
+               self._model_key(dec), _signature(batch), cfg.maxlen,
+               (cfg.temperature, cfg.top_k, cfg.top_p) if sampled else None)
+        uniforms = dec._uniforms(style, fold, batch.query.shape[0],
+                                 batch.query.device)
+        with self._lock, torch.inference_mode():
+            ps = self._set(key, lambda: StreamPrograms(
+                dec, batch, sampled, self.capture))
+            if ps is not None and ps.held:
+                self.eager += 1
+                ps = None
+            elif ps is not None:
+                ps.held = True
+        if ps is None:
+            yield from dec.stream_eager(batch, style, fold)
+        else:
+            yield from ps.stream(batch, uniforms, self._lock)

@@ -29,6 +29,7 @@ request encoding here, loads without it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -641,12 +642,15 @@ class ServingSession:
 
     def _stream_words(self, hb: HostBatch, style: str, fold: int):
         eos = self.vocab["<eos>"]
-        for step_tokens in self.decoder.stream_tokens(
-                self.to_device(hb), style=style, fold=fold):
-            t = int(step_tokens[0])   # the one valid row
-            if t == eos:
-                return
-            yield self.vlist[t]
+        # closed when this stream ends or is closed: a graphed stream
+        # gives its program set back
+        with contextlib.closing(self.decoder.stream_tokens(
+                self.to_device(hb), style=style, fold=fold)) as steps:
+            for step_tokens in steps:
+                t = int(step_tokens[0])   # the one valid row
+                if t == eos:
+                    return
+                yield self.vlist[t]
 
 
 class AsyncServer:

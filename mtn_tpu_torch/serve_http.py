@@ -113,6 +113,7 @@ counters are rank 0's.
 from __future__ import annotations
 
 import base64
+import contextlib
 import io
 import json
 import os
@@ -733,8 +734,11 @@ class _Handler(BaseHTTPRequestHandler):
                 # streams serialize behind the session lock (the sample
                 # fold counter is shared mutable state); a beam
                 # session's batcher traffic does not take the lock
-                with srv._lock:
-                    for word in srv.session.stream(req, style=style):
+                # a client gone mid-stream makes event() raise: the
+                # stream is closed and gives its program set back
+                with srv._lock, contextlib.closing(
+                        srv.session.stream(req, style=style)) as stream:
+                    for word in stream:
                         words.append(word)
                         event({"token": word})
                 srv.latency.observe(time.monotonic() - t0)

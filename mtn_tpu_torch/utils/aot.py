@@ -41,7 +41,10 @@ CPU the same sets run their loop on the host. So an artifact's answers
 are the live session's at the same frozen shapes, bit for bit. The
 sample step takes its uniforms as an input, drawn by the live law
 (``draw_seed(seed, fold, position)`` on the session's device). A stream
-stays one step program a token, as in JAX. Every program takes the
+runs the one-row prefix and the exported stream step in a
+:class:`~mtn_tpu_torch.decode.graphs.StreamPrograms` set, the prefix
+replayed once and the step once a token, as JAX's artifact runs its
+``stream_prefix`` and ``stream_step`` programs. Every program takes the
 model's tensors as its leading inputs, so an artifact stores its
 weights once (``weights.pt``), whatever its number of programs.
 
@@ -69,6 +72,7 @@ Each runs on the card unless given ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -84,8 +88,9 @@ import torch
 from mtn_tpu_torch.ops import attention_kernel, ffn_kernel  # noqa: F401
 from mtn_tpu_torch.config import DecodeConfig, _to_jsonable, config_from_dict
 from mtn_tpu_torch.data.vocab import vocab_list, words2ids
-from mtn_tpu_torch.decode.graphs import (BeamPrograms, LoopPrograms,
-                                         RankPrograms, TokenPrograms)
+from mtn_tpu_torch.decode.graphs import (BeamPrograms, ProgramSet,
+                                         RankPrograms, StreamPrograms,
+                                         TokenPrograms, eager_stream)
 from mtn_tpu_torch.decode.steps import (beam_init, beam_step,
                                         completions_to_results, cut_rows,
                                         detokenize, draw_seed,
@@ -423,10 +428,15 @@ class _Source:
     """An artifact's programs at row bucket ``B`` as the one-step
     functions and prefixes that :mod:`mtn_tpu_torch.decode.graphs`'s
     program sets take from a live decoder: the state is the prefix
-    program's leaves, the KV caches a flat list of tensors."""
+    program's leaves, the KV caches a flat list of tensors. With
+    ``stream`` (a style), ``token_next`` is that style's one-row stream
+    step."""
 
-    def __init__(self, session: "AotSession", B: int):
+    def __init__(self, session: "AotSession", B: int,
+                 stream: Optional[str] = None):
         self.s, self.B = session, B
+        self.step = step_blob(B) if stream is None else stream_step_blob(
+            stream)
         self.cfg = session.decode_cfg
         self.vocab_size = session.model_cfg.vocab_size
         self.pad, self.sos = session._pad, session._sos
@@ -449,7 +459,7 @@ class _Source:
 
     def token_next(self, state, l, cur, kv, u):
         u = [] if u is None else [u]
-        return self.s._call(step_blob(self.B), l, cur, *u, *state, *kv)
+        return self.s._call(self.step, l, cur, *u, *state, *kv)
 
     def rank_prefix(self, inputs, cand, cand_len):
         _, N, L = cand.shape
@@ -478,11 +488,14 @@ class AotSession:
     routes by ``hasattr`` and answers 501 for what the artifact lacks.
     :meth:`reload` swaps in a re-exported artifact.
 
-    Each decode and each rank runs through a program set of
+    Each decode, each rank and each stream runs through a program set of
     :mod:`mtn_tpu_torch.decode.graphs` over the artifact's programs (one
-    per row bucket, and the rank shape): captured and launched as one
-    graph on CUDA, run as they are on the CPU. :meth:`warmup` builds
-    every set; a set not built yet is built at its first batch."""
+    per row bucket, the rank shape and each stream style): captured on
+    CUDA, a decode and a rank launched as one graph and a stream as one
+    replay a token; run as they are on the CPU. :meth:`warmup` builds
+    every set; a set not built yet is built at its first use. A stream
+    opened while another of its style is open runs eagerly (counted in
+    ``eager_streams``)."""
 
     #: serving front ends serialize an artifact behind one lock
     is_aot = True
@@ -525,7 +538,8 @@ class AotSession:
         self._eos = self.vocab["<eos>"]
         self._sample_calls = 0
         self.capture = self.device.type == "cuda"
-        self.sets: Dict[Tuple[str, int], LoopPrograms] = {}
+        self.sets: Dict[Tuple[str, int], ProgramSet] = {}
+        self.eager_streams = 0
         if self.meta.get("rank"):
             self.rank = self._rank
         if self.meta.get("stream"):
@@ -588,28 +602,34 @@ class AotSession:
 
     def _uniforms(self, sample: bool, fold: int, B: int):
         if not sample:
-            return lambda l: []
+            return lambda l: None
         seed, V = self.decode_cfg.sample_seed, self.model_cfg.vocab_size
-        return lambda l: [gumbel_uniforms((B, V), draw_seed(seed, fold, l),
-                                          self.device)]
+        return lambda l: gumbel_uniforms((B, V), draw_seed(seed, fold, l),
+                                         self.device)
 
     def _sampled(self) -> bool:
         return self.style == "sample" and self.decode_cfg.temperature > 0.0
 
     @torch.inference_mode()
-    def program_set(self, kind: str, B: int) -> LoopPrograms:
-        """The program set of ``kind`` ("beam", "tokens" or "rank") at row
-        bucket ``B``, built at its first use (a blank request's inputs
-        as its static inputs)."""
+    def program_set(self, kind: str, B: int) -> ProgramSet:
+        """The program set of ``kind`` ("beam", "tokens", "rank",
+        "stream_greedy" or "stream_sample") at row bucket ``B``, built at
+        its first use (a blank request's inputs as its static
+        inputs)."""
         key = (kind, B)
         if key not in self.sets:
-            src = _Source(self, B)
+            style = kind[len("stream_"):] if kind.startswith("stream_") \
+                else None
+            src = _Source(self, B, style)
             _, example = self._inputs([Request(question="")], B)
             if kind == "beam":
                 ps = BeamPrograms(src, example, self.capture)
             elif kind == "tokens":
                 ps = TokenPrograms(src, example, self._sampled(),
                                    self.capture)
+            elif style is not None:
+                ps = StreamPrograms(src, example, style == "sample",
+                                    self.capture)
             else:
                 cand, clen = self.rank_tensors([], True)
                 ps = RankPrograms(src, example, cand, clen, self.capture)
@@ -645,9 +665,8 @@ class AotSession:
             if self.style == "sample":
                 fold = self._sample_calls
                 self._sample_calls += 1
-            uniforms = self._uniforms(self._sampled(), fold, rows)
             toks = self.program_set("tokens", rows).run(
-                inputs, lambda l: uniforms(l)[0])
+                inputs, self._uniforms(self._sampled(), fold, rows))
             out.extend(DecodeResult([(detokenize(r, self.vlist, self._eos),
                                       0.0)])
                        for r in cut_rows(toks, hb.valid, self._eos))
@@ -699,10 +718,16 @@ class AotSession:
                 for i, (c, s) in enumerate(zip(candidates, scores))]
 
     # -- streaming (exported with stream=True) ----------------------------------
+    def _stream_kind(self, style: str) -> str:
+        """The stream set a style runs on: a sample at temperature <= 0
+        is greedy's argmax, as live."""
+        sample = style == "sample" and self.decode_cfg.temperature > 0.0
+        return "stream_sample" if sample else "stream_greedy"
+
     def _stream(self, request: Request, style: Optional[str] = None):
         """Generator of answer words for ONE request as they are decoded
         (``ServingSession.stream``'s style default and fold law), through
-        the one-row stream programs."""
+        the one-row stream programs' set."""
         smeta = self.meta["stream"]
         if style is None:
             style = "greedy" if self.style == "beam_search" else self.style
@@ -713,22 +738,24 @@ class AotSession:
         if style == "sample":
             fold = self._sample_calls
             self._sample_calls += 1
-        sample = style == "sample" and self.decode_cfg.temperature > 0.0
+        kind = self._stream_kind(style)
+        uniforms = self._uniforms(kind == "stream_sample", fold, 1)
         with torch.inference_mode():
             _, inputs = self._inputs([request], 1)
-            state, kv = self._state(1, inputs), self._kv(1, smeta["maxlen"])
-            uniforms = self._uniforms(sample, fold, 1)
-            pos = torch.arange(smeta["maxlen"], device=self.device)
-            cur = torch.full((1,), self._sos, dtype=torch.int64,
-                             device=self.device)
-        for l in range(int(smeta["maxlen"])):
-            with torch.inference_mode():
-                cur = self._call(stream_step_blob(style), pos[l], cur,
-                                 *uniforms(l), *state, *kv)
-            t = int(cur[0])
-            if t == self._eos:
-                return
-            yield self.vlist[t]
+        ps = self.program_set(kind, 1)
+        if ps.held:   # another stream of this style is open
+            self.eager_streams += 1
+            steps = eager_stream(_Source(self, 1, kind[len("stream_"):]),
+                                 inputs, uniforms)
+        else:
+            ps.held = True
+            steps = ps.stream(inputs, uniforms)
+        with contextlib.closing(steps):
+            for host in steps:
+                t = int(host[0])
+                if t == self._eos:
+                    return
+                yield self.vlist[t]
 
     # -- operations --------------------------------------------------------------
     def reload(self, art_dir: Optional[str] = None):
@@ -753,13 +780,16 @@ class AotSession:
 
     def warmup(self, stream: bool = False) -> float:
         """Build the program set of every row bucket and the rank shape
-        (:meth:`build_programs`), run the decode on one blank request (and
-        the stream programs with ``stream=True``); returns seconds
+        (:meth:`build_programs`), run the decode on one blank request
+        (with ``stream=True`` also build the stream sets the session's
+        styles run on, and stream the request); returns seconds
         spent."""
         t0 = time.monotonic()
         self.build_programs()
         self.respond_batch([Request(question="")])
         if stream and self.meta.get("stream"):
+            for style in self.meta["stream"]["styles"]:
+                self.program_set(self._stream_kind(style), 1)
             for _ in self._stream(Request(question="")):
                 pass
         return time.monotonic() - t0

@@ -289,6 +289,41 @@ def test_stream_matches_live(artifact, session, bridged, served):
         list(session.stream(reqs[0], style="beam_search"))
 
 
+def test_stream_runs_on_its_program_set(artifact, bridged, served):
+    """``warmup(stream=True)`` builds a stream set a style; a stream runs
+    on its style's set (a prefix replay and one step replay a token),
+    the live stream's words, eager and through the live decoder's own
+    stream set; one opened while another is open runs eagerly, counted;
+    a closed stream gives the set back."""
+    art, meta, live = artifact
+    session = AotSession(art, device="cpu")
+    session.warmup(stream=True)
+    assert ("stream_greedy", 1) in session.sets
+    assert ("stream_sample", 1) in session.sets
+    req = _requests(served[1])[0]
+    want = list(live.stream(req, style="greedy"))
+    assert len(want) >= 2, "the stream must outlast a yield"
+    graphed = _graphed_live(_live(bridged[0], BEAM))
+    for _ in range(2):          # the shape's first stream runs eagerly
+        assert list(graphed.stream(req)) == want
+    assert graphed.decoder.graphs.captures == 1
+    ps = session.sets[("stream_greedy", 1)]
+    replays = ps.replays
+    assert list(session.stream(req)) == want and not ps.held
+    steps = min(len(want) + 1, meta["stream"]["maxlen"])
+    assert ps.replays == replays + 1 + steps
+    a = session.stream(req)
+    first = next(a)
+    assert ps.held
+    assert list(session.stream(req)) == want
+    assert session.eager_streams == 1
+    assert [first, *a] == want and not ps.held
+    a = session.stream(req)
+    next(a)
+    a.close()
+    assert not ps.held and session.eager_streams == 1
+
+
 # -- greedy, sample, int8 ----------------------------------------------------------
 def test_cli_export_info_run_and_greedy_artifact(bridged, tmp_path, capsys,
                                                  monkeypatch):

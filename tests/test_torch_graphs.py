@@ -4,8 +4,10 @@ loop bitwise the eager loop and margin-aware JAX's ``beam_batch`` for
 every chunk length, its step count JAX's ``while_loop`` count, the
 early-stop table closing before ``maxlen``; greedy, sample (the uniforms
 drawn before the loop) and rank bitwise their eager loops; the launch
-record of a capture; the program cache and its admission of shapes; and
-the branch that keeps the CPU and meshes out of the capture code."""
+record of a capture; the program cache and its admission of shapes; a
+stream's hold on its set (never evicted while open, given back when
+closed, a second stream of its key eager); and the branch that keeps
+the CPU and meshes out of the capture code."""
 
 import dataclasses
 import types
@@ -352,7 +354,7 @@ def test_cpu_and_meshes_never_reach_the_capture_code(setup, monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("reached the capture code")
-    for name in ("beam", "tokens", "rank"):
+    for name in ("beam", "tokens", "rank", "stream"):
         monkeypatch.setattr(graphs.GraphRunner, name, refuse)
     monkeypatch.setattr(graphs.Program, "__init__", refuse)
     monkeypatch.setattr(torch.cuda, "graph", refuse)
@@ -361,6 +363,7 @@ def test_cpu_and_meshes_never_reach_the_capture_code(setup, monkeypatch):
     assert dec.beam_batch(tdb)
     assert dec.greedy_batch(tdb) and dec.sample_batch(tdb, fold=1)
     assert dec.rank_batch(tdb, [[[5, 6]]] * tdb.query.shape[0])
+    assert list(dec.stream_tokens(tdb, "sample", 2))
     cuda_like = types.SimpleNamespace(is_cuda=True)
     assert dec.graphed(cuda_like) and not dec.graphed(tdb.query)
     for data, model_axis in ((object(), None), (None, object())):
@@ -509,3 +512,91 @@ def test_launch_accounting_adds_body_calls_times_passes(setup,
     assert ps.iterations == [1, 0]
     _build.replayed({(kernel, ()): 2}, times=3)
     assert kernel.launches == 61 + 6
+
+
+def _rows(tdb, n: int):
+    """The first ``n`` rows of a device batch (another shape)."""
+    return dataclasses.replace(tdb, **{
+        f.name: (getattr(tdb, f.name)[:n]
+                 if torch.is_tensor(getattr(tdb, f.name))
+                 else tuple(t[:n] for t in getattr(tdb, f.name)))
+        for f in dataclasses.fields(tdb)})
+
+
+def _stream_decoder(setup, monkeypatch, style="greedy", fold=0):
+    """A graphed decoder whose stream of ``tdb`` has built its set (the
+    shape's first stream ran eagerly), the set, and the eager stream's
+    yields."""
+    cfg, params, jdb, tdb, model = setup
+    dcfg = DecodeConfig(maxlen=6, beam=2, nbest=2, temperature=1.0,
+                        top_k=8, sample_seed=7)
+    want = [y.tolist() for y in BeamDecoder(model, dcfg).stream_tokens(
+        tdb, style, fold)]
+    assert len(want) >= 3, "the stream must outlast two yields"
+    dec = _graphed(BeamDecoder(model, dcfg), 1, monkeypatch)
+    list(dec.stream_tokens(tdb, style, fold))
+    assert [y.tolist() for y in dec.stream_tokens(tdb, style, fold)] == want
+    ps = next(iter(dec.graphs.sets.values()))
+    assert isinstance(ps, graphs.StreamPrograms) and not ps.held
+    return dec, ps, want
+
+
+def test_open_stream_set_is_never_evicted(setup, monkeypatch):
+    """With the cache full of an open stream's set, a beam shape seen far
+    more often runs eagerly and evicts nothing; the stream goes on, equal
+    to the eager stream, and once it ends the beam shape takes its
+    place."""
+    monkeypatch.setattr(graphs, "MAX_PROGRAMS", 1)
+    dec, ps, want = _stream_decoder(setup, monkeypatch)
+    runner, tdb = dec.graphs, setup[3]
+    gen = dec.stream_tokens(tdb)
+    got = [next(gen).tolist(), next(gen).tolist()]
+    assert ps.held
+    half = _rows(tdb, 3)
+    eager = runner.eager
+    for _ in range(4):
+        dec.beam_batch_raw(half)
+    assert runner.evictions == 0 and list(runner.sets.values()) == [ps]
+    assert runner.eager == eager + 4
+    got += [y.tolist() for y in gen]
+    assert got == want and not ps.held
+    dec.beam_batch_raw(half)
+    assert runner.evictions == 1 and ps not in runner.sets.values()
+
+
+def test_closed_stream_gives_its_set_back(setup, monkeypatch):
+    """A stream closed after two yields (a client gone) releases its set;
+    the next stream of the shape runs on it, with no new capture."""
+    dec, ps, want = _stream_decoder(setup, monkeypatch, "sample", 3)
+    runner, tdb = dec.graphs, setup[3]
+    gen = dec.stream_tokens(tdb, "sample", 3)
+    next(gen)
+    next(gen)
+    assert ps.held
+    gen.close()
+    assert not ps.held
+    captures, eager, replays = runner.captures, runner.eager, ps.replays
+    assert [y.tolist() for y in dec.stream_tokens(tdb, "sample", 3)] == want
+    assert (runner.captures, runner.eager) == (captures, eager)
+    assert ps.replays == replays + 1 + len(want)
+
+
+@pytest.mark.parametrize("style,fold", [("greedy", 0), ("sample", 3)])
+def test_second_open_stream_runs_eagerly(setup, monkeypatch, style, fold):
+    """A stream opened while another of its key is open runs eagerly and
+    counts in ``eager``; the two, stepped in turn, each yield the eager
+    stream's tokens."""
+    dec, ps, want = _stream_decoder(setup, monkeypatch, style, fold)
+    runner, tdb = dec.graphs, setup[3]
+    a = dec.stream_tokens(tdb, style, fold)
+    got_a = [next(a).tolist()]
+    eager = runner.eager
+    b = dec.stream_tokens(tdb, style, fold)
+    got_b = []
+    for x, y in zip(a, b):
+        got_a.append(x.tolist())
+        got_b.append(y.tolist())
+    got_a += [x.tolist() for x in a]
+    got_b += [y.tolist() for y in b]
+    assert runner.eager == eager + 1 and runner.captures == 1
+    assert got_a == want and got_b == want and not ps.held

@@ -1,7 +1,10 @@
 """The port's token stream: reassembled, it equals greedy_batch and
 sample_batch token for token; invalid rows are dropped from every yield
 and do not keep the stream alive; beam style raises (the laws of
-``tests/test_beam.py``'s stream tests)."""
+``tests/test_beam.py``'s stream tests). Through the captured programs
+(:class:`~mtn_tpu_torch.decode.graphs.StreamPrograms`, run without
+capture on the CPU) a stream yields, step for step, what the eager
+stream yields, and its greedy stream is JAX's ``stream_tokens``."""
 
 import dataclasses
 
@@ -9,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from mtn_tpu.config import DecodeConfig as JDecodeConfig
+from mtn_tpu.decode.beam import BeamDecoder as JBeamDecoder
 from mtn_tpu_torch.config import DecodeConfig
+from mtn_tpu_torch.decode import graphs
 from mtn_tpu_torch.decode.beam import BeamDecoder
 from tests.fixtures import tiny_model_cfg
 from tests.torch_parity import (EOS, both_batches, host_fields, one_thread,
@@ -17,14 +23,35 @@ from tests.torch_parity import (EOS, both_batches, host_fields, one_thread,
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
+SAMPLED = dict(maxlen=8, decode_style="sample", temperature=1.0, top_k=12,
+               top_p=0.9, sample_seed=4)
+
 
 @pytest.fixture(scope="module")
-def setup():
+def both():
     rng = np.random.default_rng(9)
     fields = host_fields(rng, B=5, vocab=20)
-    _, tdb = both_batches(fields)
+    jdb, tdb = both_batches(fields)
     cfg = tiny_model_cfg(20, (12, 8), dropout=0.0)
-    return tdb, port_model(cfg, seeded_params(cfg, seed=2, gen_scale=3.0))
+    params = seeded_params(cfg, seed=2, gen_scale=3.0)
+    return cfg, params, jdb, tdb, port_model(cfg, params)
+
+
+@pytest.fixture(scope="module")
+def setup(both):
+    return both[3], both[4]
+
+
+def graphed(dec):
+    """``dec`` taking its runner for CPU tensors, the runner running its
+    program sets without capture."""
+    dec.graphs = graphs.GraphRunner(capture=False)
+    dec.graphed = lambda t: True
+    return dec
+
+
+def yields(gen):
+    return [y.tolist() for y in gen]
 
 
 def _assemble(gen, n_valid, eos=EOS):
@@ -91,3 +118,49 @@ def test_stream_rejects_beam_style(setup):
     dec = BeamDecoder(model, DecodeConfig(maxlen=6))
     with pytest.raises(ValueError):
         next(dec.stream_tokens(tdb, style="beam_search"))
+
+
+@pytest.mark.parametrize("some_invalid", [False, True])
+@pytest.mark.parametrize("style,fold", [("greedy", 0), ("sample", 0),
+                                        ("sample", 3)])
+def test_program_set_stream_is_the_eager_stream(setup, style, fold,
+                                                some_invalid):
+    """A shape's first stream runs eagerly and builds no set, its second
+    builds the set and runs on it, its third reuses it: every one yields,
+    step for step, what the eager stream yields."""
+    tdb, model = setup
+    if some_invalid:
+        tdb = dataclasses.replace(tdb, valid=torch.tensor(
+            [True, False, True, False, True]))
+    eager = BeamDecoder(model, DecodeConfig(**SAMPLED))
+    want = yields(eager.stream_tokens(tdb, style, fold))
+    assert want and len(want[0]) == int(tdb.valid.sum())
+    dec = graphed(BeamDecoder(model, DecodeConfig(**SAMPLED)))
+    runner = dec.graphs
+    assert yields(dec.stream_tokens(tdb, style, fold)) == want
+    assert not runner.sets and runner.eager == 1
+    assert yields(dec.stream_tokens(tdb, style, fold)) == want
+    assert runner.captures == 1 and runner.eager == 1
+    ps = next(iter(runner.sets.values()))
+    assert isinstance(ps, graphs.StreamPrograms) and not ps.held
+    assert (ps.u is not None) == (style == "sample")
+    replays = ps.replays
+    assert yields(dec.stream_tokens(tdb, style, fold)) == want
+    assert runner.captures == 1 and ps.replays == replays + 1 + len(want)
+
+
+def test_program_set_greedy_stream_is_jax_stream(both):
+    """The greedy stream through its program set, step for step and
+    reassembled, is JAX's ``stream_tokens`` on the same seeded params;
+    the reassembled rows are the greedy batch's."""
+    cfg, params, jdb, tdb, model = both
+    dec = graphed(BeamDecoder(model, DecodeConfig(maxlen=8)))
+    list(dec.stream_tokens(tdb))            # the shape's first: eager
+    got = yields(dec.stream_tokens(tdb))
+    assert dec.graphs.captures == 1
+    jdec = JBeamDecoder(cfg, JDecodeConfig(maxlen=8))
+    want = [np.asarray(y).tolist()
+            for y in jdec.stream_tokens(params, jdb, "greedy")]
+    assert got == want
+    rows, _ = _assemble(iter(np.asarray(y) for y in got), len(got[0]))
+    assert rows == jdec.greedy_batch(params, jdb) == dec.greedy_batch(tdb)
