@@ -50,7 +50,7 @@
    programs, with launches of each; one beam batch eager and graphed
    under torch.profiler (both kernels seen inside the replays, and in
    every profiled call the profiler's count of each kernel equal to its
-   own count); the sweep of the chunk length k over 1, 2, 4, 8 and 30
+   own count); the graphed beam at the chunk length k = 1
    (host wall per warm batch, device busy, idle share, device launches,
    host reads and replays a batch, capture seconds per program and the
    bytes a program set holds); ``cli.generate --uniform-shapes 0`` at 8
@@ -115,10 +115,10 @@
    traffic: both kernels for bf16, attention and never the FFN for
    int8), ``[serve-parallel]`` (two ranks on the card over gloo as 2x1
    and 1x2, rank 0 serving HTTP and rank 1 following it in lockstep: the
-   32 requests as two 16-request batches, again from 8 threads, one
+   32 requests as two 16-request batches, 8 again from 8 threads, one
    /v1/rank, one greedy /v1/stream, one /admin/reload; under 2x1 the
    n-bests and the stream bitwise one process's, under 1x2 an f32
-   session's n-bests margin-aware within 1e-3; both ranks launch both
+   session's 16 n-bests margin-aware within 1e-3; both ranks launch both
    kernels (1x2: at 4 heads and d_ff 1024), run the same commands and
    exit 0) and ``[aot]`` (``mtn_tpu_torch.utils.aot``: a bf16 beam
    artifact with row buckets 1 and 16, rank 100 × 24 and the stream
@@ -131,7 +131,7 @@
    /v1/stream; the artifact's greedy stream on its stream set equal to
    the live decoder's stream at the frozen shapes, eager and graphed,
    with host ms a step of each; the f32 artifact on the card within 1e-3 of the CPU's;
-   an int8-fp-head artifact at 2 blocks bitwise its live session,
+   an int8-fp-head artifact at 1 block bitwise its live session,
    attention launched and the FFN kernel never);
 7. ``[grad]``: for each kernel in f32 and bf16, the output and the
    gradients through its autograd wrapper (kernel forward, plain
@@ -162,6 +162,15 @@
    checkpoint meta has a best epoch, and reports the trainer's step
    programs (steps, distinct train shapes, captures, eager steps); then
    decodes (a)'s best checkpoint with ``cli.generate``;
+   ``[run-torch]``: run.sh's stages 2-4 on the port, ``bash run_torch.sh
+   2`` from the checkout's root (``python -m mtn_tpu_torch.cli.train``,
+   ``.generate``, ``.evaluate``) at run.sh's settings and its vocabulary
+   cutoff of 5, one epoch, with both kernels switched on: the kernels
+   run only in validation (read from the trainer's log), the loss falls;
+   stage 3's beam decode of the best checkpoint through both kernels,
+   its result JSON byte-equal to ``cli.generate`` run here with the same
+   flags and its launches equal to those counted here; stage 4's
+   Bleu_1..CIDEr block; each stage's wall seconds;
 9. ``[train-reference]``: one f32 train step of the trained flagship
    model on the card (kernels) against the CPU (plain versions): the loss
    within 1e-5 and every gradient within a relative L2 difference of
@@ -286,13 +295,12 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, iters: int = 50, warmup: int = 10):
+def device_us(fn, iters: int = 25, warmup: int = 10):
     """Device time per call of ``fn`` in µs: the durations of the CUDA
     kernels that ``iters`` calls launched, summed by torch.profiler, over
     ``iters``; "not measured" if the profiler saw no device activity.
     (The profiler's own processing, not the calls, takes most of this
-    function's time: 50 calls keep the whole script within half its
-    limit.)"""
+    function's time: 25 calls keep the whole script within its time.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -428,7 +436,8 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     200 (rank: 2 turns × 100 options) and 80 (serving: 16 turns × beam
     5), and at rank's precompute (the AE FFN over 2 turns × 32 query
     positions, 64 rows); at 5 (an artifact's one-turn beam step, as
-    ``serve_http --aot`` decodes each request); at 40 and 8 (a 2x1 served
+    ``serve_http --aot`` decodes each request) and 1 (its one-row stream
+    step); at 40 and 8 (a 2x1 served
     rank's beam and stream steps, 8 turns); at 16, 161 (a
     ragged row tile) and 256 rows (the gate's edge); and at 300 and 1024
     rows, outside the gate. Then a tensor-parallel rank's d_ff slice
@@ -444,7 +453,7 @@ def ffn_cases(torch, fk, dtype_name: str, gen):
     D = 512
     elt = torch.empty((), dtype=dt).element_size()
     outs = (False, True) if dtype_name == "bfloat16" else (False,)
-    cases = [(2048, (160, 32, 200, 80, 64, 16, 5, 40, 8, 161, 256, 300,
+    cases = [(2048, (160, 32, 200, 80, 64, 16, 5, 1, 40, 8, 161, 256, 300,
                      1024), (False,)), (1024, (160, 256, 80, 16), outs)]
     rows = []
     for F, Ns, f32_outs in cases:
@@ -700,7 +709,8 @@ def kernel_group(name: str) -> str:
         return "attention (csrc)"
     if "ffn_" in name:
         return "ffn (csrc)"
-    if any(s in name for s in ("gemm", "gemv", "xmma", "cutlass")):
+    # cuBLASLt names its Hopper GEMMs nvjet_*
+    if any(s in name for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     if "sort" in name.lower() or "radix" in name.lower():
         return "sort (top-k)"
@@ -834,7 +844,9 @@ def graph_loop_launches() -> int:
 
 
 # -- [graphs]: each decode batch as one device program ------------------------
-GRAPH_CHUNKS = (1, 2, 4)   # the sweep of k under the WHILE node
+GRAPH_CHUNKS = (1,)        # k under the WHILE node (PR 14's sweep: k 2 and
+                           # 4 read 34.56-34.81 and 33.92-34.19 ms a batch
+                           # against k 1's 31.13-31.65)
 GRAPH_DECODE = dict(maxlen=30, beam=5, nbest=5, penalty=1.0)
 GRAPH_SAMPLE = dict(maxlen=30, temperature=1.0, top_k=50, top_p=0.9,
                     sample_seed=1)
@@ -1047,8 +1059,8 @@ def graphs_phase(torch, ak, fk, corpus: dict, root: str) -> dict:
     mode bitwise equal through the eager loop and the captured programs
     (:func:`graph_equality`); one beam batch eager and graphed under
     torch.profiler (both kernels inside the replays, the profiler's
-    count of each equal to the kernels' own); the sweep of the chunk
-    length k: host wall per warm beam batch, device busy, idle share,
+    count of each equal to the kernels' own); for each chunk length k
+    of ``GRAPH_CHUNKS``: host wall per warm beam batch, device busy, idle share,
     device launches, host reads, graph launches and program runs,
     capture seconds per program and the bytes the program set holds
     (``memory_reserved`` after ``empty_cache``, its capture against
@@ -2028,6 +2040,8 @@ def served_streams(torch, ak, fk, session, base, bodies, first, counted,
 
 # -- [serve-parallel]: serving under a mesh of lockstep ranks ---------------
 SERVE_PAR_WARMUP_COMMANDS = 2   # warmup(stream=True): a decode and a stream
+SERVE_PAR_LOAD = 8              # requests from the 8 threads, under a mesh
+SERVE_PAR_F32_REQUESTS = 16     # the f32 session's n-bests (one batch)
 
 
 def serve_batches(base: str, bodies) -> list:
@@ -2089,7 +2103,8 @@ def serve_one_process(torch, corpus: dict, bodies, dtype: str) -> dict:
     reqs = [parse_request(b) for b in bodies]
     out = {}
     out["split"] = device_split(torch, lambda: out.update(
-        nbest=session_nbests(session, corpus)))
+        nbest=session_nbests(session, corpus, SERVE_REQUESTS if dtype ==
+                             "bfloat16" else SERVE_PAR_F32_REQUESTS)))
     if dtype == "bfloat16":
         srv = AsyncServer(session, max_wait_ms=1.0)
         try:
@@ -2106,7 +2121,7 @@ def serve_one_process(torch, corpus: dict, bodies, dtype: str) -> dict:
 def serve_leader(torch, ak, fk, session, corpus: dict) -> dict:
     """Rank 0: ``serve_http.start_server`` over the mesh's session and the
     traffic through it: the 32 requests as two 16-request batches (their
-    host/device split), the 32 again from 8 threads (requests/sec), one
+    host/device split), 8 of them again from 8 threads (requests/sec), one
     /v1/rank with 100 candidates, one greedy /v1/stream, one
     /admin/reload of the served checkpoint; launches counted over the
     traffic alone."""
@@ -2119,7 +2134,7 @@ def serve_leader(torch, ak, fk, session, corpus: dict) -> dict:
     def traffic():
         out["split"] = device_split(torch, lambda: out.update(
             nbest=serve_batches(base, bodies)))
-        out["load"] = concurrent_respond(base, bodies)
+        out["load"] = concurrent_respond(base, bodies[:SERVE_PAR_LOAD])
         code, ranked = http(base, "/v1/rank", dict(
             bodies[1], candidates=rank_candidates(corpus)))
         out["rank"] = [c["logp"] for c in ranked["candidates"]] \
@@ -2138,7 +2153,8 @@ def serve_leader(torch, ak, fk, session, corpus: dict) -> dict:
 def serve_follower(torch, ak, fk, session) -> dict:
     """A follower's loop, its launches counted from the first command
     after rank 0's warmup, and the host/device split of its part of the
-    two 16-request batches (the next two commands)."""
+    two 16-request batches (the next two commands; none where only one
+    came)."""
     from torch.profiler import ProfilerActivity, profile
     orig, n, out = session._run, [0], {}
     prof = profile(activities=[ProfilerActivity.CPU,
@@ -2166,6 +2182,9 @@ def serve_follower(torch, ak, fk, session) -> dict:
     session._run = run
     seen = record_launches(ak, fk, lambda: out.update(
         commands=session.follow()))
+    if "t0" in out:   # one batch after the warmup (the f32 session's)
+        prof.stop()
+        del out["t0"]
     torch.cuda.synchronize()
     out["count"] = dict(launches={"attention": ak.KERNEL.launches,
                                   "ffn": fk.KERNEL.launches},
@@ -2199,7 +2218,8 @@ def serve_rank(rank: int, world: int, port: int, mesh: str, corpus: dict,
             if dtype == "bfloat16":
                 part = serve_leader(torch, ak, fk, session, corpus)
             else:
-                part = dict(nbest=session_nbests(session, corpus))
+                part = dict(nbest=session_nbests(session, corpus,
+                                                 SERVE_PAR_F32_REQUESTS))
             session.close()
         else:
             part = serve_follower(torch, ak, fk, session)
@@ -2213,11 +2233,12 @@ def serve_rank(rank: int, world: int, port: int, mesh: str, corpus: dict,
     multihost.shutdown()
 
 
-def session_nbests(session, corpus: dict) -> list:
-    """The 32 requests as two respond_batch calls of the session:
-    [[answers], [scores]] per request."""
+def session_nbests(session, corpus: dict,
+                   requests: int = SERVE_REQUESTS) -> list:
+    """The first ``requests`` of the 32 requests as respond_batch calls
+    of the session, 16 a call: [[answers], [scores]] per request."""
     from mtn_tpu_torch.serve_http import parse_request
-    reqs = [parse_request(b) for b in serve_bodies(corpus, SERVE_REQUESTS)]
+    reqs = [parse_request(b) for b in serve_bodies(corpus, requests)]
     return [[[a for a, _ in r.nbest], [sc for _, sc in r.nbest]]
             for lo in range(0, len(reqs), SERVE_TURN_BATCH)
             for r in session.respond_batch(reqs[lo:lo + SERVE_TURN_BATCH])]
@@ -2263,7 +2284,7 @@ def serve_parallel_phase(torch, corpus: dict, root: str,
                       follow["count"]["launches"]],
             shapes=[lead["count"]["shapes"], follow["count"]["shapes"]])
         row["exitcodes"] = [r["exitcode"] for r in ranks]
-        good = row["answered"] == SERVE_REQUESTS and \
+        good = row["answered"] == SERVE_PAR_LOAD and \
             row["reload"] == [200, {"ok": True, "epoch": 1}] and \
             row["commands"][0] == row["commands"][1] and \
             row["rank_max_abs_diff"] is not None and \
@@ -2295,7 +2316,7 @@ def serve_parallel_phase(torch, corpus: dict, root: str,
 AOT_BATCHES = [1, SERVE_TURN_BATCH]
 AOT_RANK = (N_OPTIONS, 24)
 AOT_REF_TOL = 1e-3       # f32 artifact, card (kernels) vs CPU (plain)
-AOT_INT8_BLOCKS = 2
+AOT_INT8_BLOCKS = 1
 
 
 def aot_decode_cfg(turn_batch: int):
@@ -3014,12 +3035,9 @@ def read_csv(path: str):
 
 def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
               *extra) -> dict:
-    """One ``cli.train.main`` run (two epochs); its kernel launches (all,
-    and those inside train steps), its trainer's step programs (steps,
-    distinct shapes, train shapes, captures, eager steps), losses and
-    checkpoint meta. Fails if a
-    loss is not finite, if the mean of the last steps' losses is not
-    below the first steps', or if meta.json has no best epoch."""
+    """One ``cli.train.main`` run (two epochs) in this process: its row
+    (:func:`train_row`) with its kernel launches counted here (all, and
+    those inside train steps) and its trainer's step programs."""
     from mtn_tpu_torch.cli import train as train_cli
     from mtn_tpu_torch.train.graphs import StepGraphs
     prefix = os.path.join(root, name, "mtn")
@@ -3033,6 +3051,18 @@ def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
     launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
     if rc != 0:
         raise AssertionError(f"train run {name}: exit code {rc}")
+    return train_row(name, prefix, wall, launches, steps.counts,
+                     runner_counts(runners))
+
+
+def train_row(name: str, prefix: str, wall: float, launches: dict,
+              train_step_launches: dict, step_programs: dict) -> dict:
+    """A stage-2 run's row from what it wrote: steps and losses
+    (``<prefix>_train.csv``), epoch losses (``_trace.csv``), the best
+    epoch (the checkpoint meta), beside its kernel launches and step
+    programs. Fails if a loss is not finite, if the mean of the last
+    steps' losses is not below the first steps', or if meta.json has no
+    best epoch."""
     rows = read_csv(prefix + "_train.csv")
     losses = [float(r["loss"]) for r in rows]
     tps = [float(r["tokens_per_sec"]) for r in rows]
@@ -3045,8 +3075,8 @@ def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
                epochs={f"{r['epoch']} {r['split']}": float(r["avg_loss"])
                        for r in read_csv(prefix + "_trace.csv")},
                best_epoch=meta.get("best_epoch"), wall_s=wall,
-               launches=launches, train_step_launches=steps.counts,
-               step_programs=runner_counts(runners),
+               launches=launches, train_step_launches=train_step_launches,
+               step_programs=step_programs,
                median_reported_tokens_per_sec=(
                    sorted(tps[1:])[len(tps[1:]) // 2] if len(tps) > 1
                    else None))
@@ -3059,6 +3089,161 @@ def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
         raise AssertionError(f"train run {name}: meta.json has no best "
                              "epoch")
     return out
+
+
+# -- run_torch.sh: stages 2-4 through the port's stage driver --------------
+RUN_TORCH_EPOCHS = 1
+RUN_TORCH_RESULT = "result_test_set_b5_p1.0_beam_search_undisclosed1"
+STAGE_LINE = re.compile(r"^stage ([1-4]): ")
+TRAIN_LAUNCHES = re.compile(
+    r"kernel launches: train (\{[^}]*\}), validation (\{[^}]*\})$")
+DECODE_LAUNCHES = re.compile(r"kernel launches: (\{[^}]*\})$")
+STEP_PROGRAMS = re.compile(
+    r"step programs: (\d+) steps, (\d+) shapes, (\d+) captures, "
+    r"(\d+) evicted, (\d+) eager, (\d+) kept$")
+
+
+def run_torch_layout(corpus: dict):
+    """run.sh's stage-3/4 layout over the corpus: ``<FeaType>_testset``
+    feature directories and the undisclosed-only labeled set (each
+    dialog's last turn). Returns (the corpus root, which is the stages'
+    ``fea_dir``, the eval set)."""
+    root = os.path.dirname(corpus["prefix"])
+    for ft in corpus["fea_types"]:
+        link = os.path.join(root, f"{ft}_testset")
+        if not os.path.lexists(link):
+            os.symlink(os.path.join(root, ft), link)
+    with open(corpus["lbl_test_set"]) as f:
+        lbl = json.load(f)
+    for d in lbl["dialogs"]:
+        d["dialog"] = d["dialog"][-1:]
+    eval_set = os.path.join(root, "lbl_undisclosedonly_test_set.json")
+    with open(eval_set, "w") as f:
+        json.dump(lbl, f)
+    return root, eval_set
+
+
+def stage3_argv(corpus: dict, expdir: str, out: str):
+    """The ``cli.generate`` flags ``run_torch.sh`` stage 3 passes with its
+    defaults, the kernel overrides of :func:`run_torch` and the stage's
+    result path ``out``."""
+    root = os.path.dirname(corpus["prefix"])
+    return ["--test-path", os.path.join(root, "<FeaType>_testset",
+                                        "<ImageID>.npy"),
+            "--test-set", corpus["test_set"],
+            "--model-conf", os.path.join(expdir, "mtn.conf.json"),
+            "--model", os.path.join(expdir, "mtn_best"), "--beam", "5",
+            "--penalty", "1.0", "--nbest", "5", "--output", out,
+            "--decode-style", "beam_search", "--undisclosed-only", "1",
+            "--labeled-test", corpus["lbl_test_set"], "--turn-batch", "32",
+            "--dtype", "bfloat16", "--mesh-data", "-1", "--mesh-model", "1",
+            "--use-pallas-attention", "1", "--use-pallas-ffn", "1",
+            "--feature-transfer", "", "--uniform-shapes", "1",
+            "--early-stop", "1", "--temperature", "1.0", "--top-k", "0",
+            "--top-p", "0.0", "--sample-seed", "1", "--device", "cuda"]
+
+
+def run_torch(corpus: dict, expdir: str, log_path: str):
+    """``bash run_torch.sh 2`` (stages 2-4) from the checkout's root, as
+    run.sh runs: run.sh's settings at the flagship width (batch 32,
+    dropout 0.1, remat, cut_a, bf16, beam 5, 32 turns a batch) for
+    ``RUN_TORCH_EPOCHS`` epochs, with both kernels switched on, a
+    training report every step, and the corpus's paths as overrides.
+    Returns (its exit code, wall seconds by stage); the output goes to
+    ``log_path``."""
+    root, eval_set = run_torch_layout(corpus)
+    fea = corpus["fea_types"]
+    argv = ["bash", "run_torch.sh", "2", " ".join(fea), "+".join(fea),
+            str(RUN_TORCH_EPOCHS), str(WARMUP), "0.1",
+            "--use_pallas_attention", "1", "--use_pallas_ffn", "1",
+            "--report_interval", "1", "--train_set", corpus["train_set"],
+            "--valid_set", corpus["valid_set"], "--test_set",
+            corpus["test_set"], "--labeled_test", corpus["lbl_test_set"],
+            "--eval_set", eval_set, "--fea_dir", root, "--expdir", expdir]
+    marks = {}
+    t0 = time.time()
+    with open(log_path, "w") as log, subprocess.Popen(
+            argv, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) as proc:
+        for line in proc.stdout:
+            log.write(line)
+            m = STAGE_LINE.match(line)
+            if m:
+                marks[int(m.group(1))] = time.time()
+        rc = proc.wait()
+    ends = sorted(marks)[1:] + [None]
+    seconds = {f"stage {s}": (marks[e] if e else time.time()) - marks[s]
+               for s, e in zip(sorted(marks), ends)}
+    seconds["total"] = time.time() - t0
+    return rc, seconds
+
+
+def run_torch_phase(torch, ak, fk, generate, corpus: dict,
+                    root: str) -> dict:
+    """``[run-torch]``: :func:`run_torch`, read from what it wrote.
+    Stage 2 (run.sh's settings, as ``[train]`` run (a) in this process,
+    but at run.sh's vocabulary cutoff of 5 and for one epoch): the losses
+    fall, the meta has a best epoch, the kernels launch in validation
+    only (the trainer's log line each epoch), its step programs. Stage 3:
+    every undisclosed answer replaced, the result JSON byte-equal to
+    ``cli.generate.main`` run here on the same checkpoint with the same
+    flags, whose launches are counted here and equal the stage's logged
+    ones. Stage 4: the ``.eval`` and the printed summary hold the 7
+    metric lines, over one reference a dialog."""
+    expdir = os.path.join(root, "run_torch")
+    log_path = os.path.join(root, "run_torch.log")
+    torch.cuda.empty_cache()
+    rc, seconds = run_torch(corpus, expdir, log_path)
+    with open(log_path) as f:
+        log = f.read()
+    if rc != 0:
+        raise AssertionError(f"run_torch.sh exited {rc}:\n{log[-6000:]}")
+    lines = log.splitlines()
+    epochs = [m.groups() for m in map(TRAIN_LAUNCHES.search, lines) if m]
+    train_launches, valid_launches = ({
+        k: sum(json.loads(e[i])[k] for e in epochs)
+        for k in ("attention", "ffn")} for i in (0, 1))
+    programs = [m.groups() for m in map(STEP_PROGRAMS.search, lines) if m]
+    decoded = [json.loads(m.group(1))
+               for m in map(DECODE_LAUNCHES.search, lines) if m]
+    if len(epochs) != RUN_TORCH_EPOCHS or not programs or len(decoded) != 1:
+        raise AssertionError("run_torch.sh: the stages' logs lack their "
+                             f"launch or program lines:\n{log[-6000:]}")
+    stage2 = train_row(
+        "run_torch", os.path.join(expdir, "mtn"), seconds["stage 2"],
+        {k: train_launches[k] + valid_launches[k] for k in train_launches},
+        train_launches, dict(zip(("batches", "shapes", "captures",
+                                  "evictions", "eager", "sets"),
+                                 map(int, programs[-1]))))
+    result = os.path.join(expdir, RUN_TORCH_RESULT + ".json")
+    here = os.path.join(root, "run_torch_here.json")
+    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    grc = generate.main(stage3_argv(corpus, expdir, here))
+    torch.cuda.synchronize()
+    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    with open(result, "rb") as f, open(here, "rb") as g:
+        same = f.read() == g.read()
+    answers = answers_of(result)
+    stage3 = dict(answers=len(answers), example=answers[0],
+                  byte_equal_in_process=same, launches=decoded[0],
+                  in_process_launches=launches,
+                  ok=grc == 0 and same and decoded[0] == launches
+                  and min(launches.values()) > 0
+                  and len(answers) == N_DIALOGS
+                  and "__UNDISCLOSED__" not in answers)
+    with open(os.path.join(expdir, RUN_TORCH_RESULT + ".eval")) as f:
+        block = [ln for ln in f.read().splitlines() if METRIC_LINE.match(ln)]
+    with open(os.path.join(expdir, RUN_TORCH_RESULT + "_ref.json")) as f:
+        refs = len(json.load(f)["annotations"])
+    summary = log.split("--- summary ---\n", 1)[-1].split("-----")[0]
+    stage4 = dict(block=block, references=refs,
+                  ok=len(block) == 7 and refs == N_DIALOGS
+                  and summary.splitlines() == block)
+    return dict(stage2=stage2, stage3=stage3, stage4=stage4,
+                seconds=seconds,
+                ok=stage3["ok"] and stage4["ok"]
+                and stage2["launches"]["attention"] > 0
+                and not any(train_launches.values()))
 
 
 def train_batch(corpus: dict, prefix: str, rows: int):
@@ -3795,11 +3980,11 @@ PAR_LOGP_TOL = 2 ** -4   # bf16: a 1x2 step's log-probs against one
 #   process's on the same hypothesis: one bf16 step of a logit below 16
 PAR_TIMEOUT_S = 600
 PAR_DECODE = dict(maxlen=30, beam=5, nbest=5, penalty=1.0, turn_batch=32)
-# 1x2 decodes traced with one group of layers replicated: which sums taken
-# in another order part a beam from one process's (sharding rule words)
-PAR_REPLICATED = {"head": ("generator",), "attention": ("w_q", "w_o"),
-                  "ffn": ("w_1", "w_2"),
-                  "attention_ffn": ("w_q", "w_o", "w_1", "w_2")}
+# a 1x2 decode traced with attention and the FFN replicated: their sums
+# taken in another order are what part a beam from one process's (sharding
+# rule words; the head, attention or FFN alone replicated left beams
+# parting in PR 10's runs)
+PAR_REPLICATED = {"attention_ffn": ("w_q", "w_o", "w_1", "w_2")}
 
 
 def free_port() -> int:
@@ -4638,6 +4823,26 @@ def main() -> int:
             return fail("generate did not decode the trained checkpoint")
         print(f"[train] generate on run (a)'s best checkpoint: "
               f"{len(trained)} answers, e.g. {trained[0]!r}")
+        phase_s["train"] = time.time() - t_phase
+        t_phase = time.time()
+
+        # run.sh's stages 2-4 through run_torch.sh at run.sh's settings,
+        # both kernels on: stage 3 decodes the best checkpoint, stage 4
+        # scores it
+        ran = run_torch_phase(torch, ak, fk, generate, corpus, root)
+        print(f"[run-torch] stage 2 {json.dumps(ran['stage2'])}")
+        print(f"[run-torch] stage 3 {json.dumps(ran['stage3'])}")
+        for line in ran["stage4"]["block"]:
+            print(f"[run-torch] stage 4 {line}  (random words: meaningless "
+                  "as a score)")
+        print(f"[run-torch] seconds {json.dumps(ran['seconds'])}; {card}")
+        if not ran["ok"]:
+            return fail("run-torch: the kernels did not launch in validation "
+                        "only, the stage-3 result differs from the "
+                        "in-process decode or lacks an answer, or stage 4's "
+                        f"block is not whole: {json.dumps(ran)}")
+        phase_s["run-torch"] = time.time() - t_phase
+        t_phase = time.time()
         ref = train_reference(torch, ak, fk, corpus, run_a["prefix"])
         print(f"[train-reference] {json.dumps(ref)}")
         if not ref["ok"]:
@@ -4652,7 +4857,7 @@ def main() -> int:
         if not tprof["counts_match"]:
             return fail("train-profile: the kernels' counts differ from the "
                         "profiler's")
-        phase_s["train"] = time.time() - t_phase
+        phase_s["train-reference, train-profile"] = time.time() - t_phase
     print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 
     def pick(kernel, shape, f32_out=False):
@@ -4685,6 +4890,7 @@ def main() -> int:
                     int8_launches=sum(int8[q]["launches"][name]
                                       for q in INT8_MODES),
                     train_launches=train_launches[name],
+                    run_torch_launches=ran["stage3"]["launches"][name],
                     batched_ae_launches=batched["launches"][name],
                     max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],

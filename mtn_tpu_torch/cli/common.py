@@ -28,6 +28,14 @@ def print_args(args: argparse.Namespace):
         print(f"{arg}={getattr(args, arg)}")
 
 
+def kernel_launches() -> dict:
+    """The hand-written kernels' launches so far in this process, by
+    kernel (0 on the CPU, where their plain versions run)."""
+    from mtn_tpu_torch.ops import attention_kernel, ffn_kernel
+    return {"attention": attention_kernel.KERNEL.launches,
+            "ffn": ffn_kernel.KERNEL.launches}
+
+
 def add_device_args(parser: argparse.ArgumentParser):
     """The JAX CLI's device knobs, with the same names and defaults."""
     parser.add_argument("--device", default="cuda", type=str,

@@ -18,6 +18,7 @@ uploads the next batches while the device decodes. In beam mode up to
 in JAX: a graphed batch is one launch that reads nothing on the host, so
 the device decodes the queued batches back to back while the host
 converts the finished ones; greedy and sample batches run one at a time.
+The run logs the hand-written kernels' launches (0 on the CPU).
 
 Under ``--multihost`` (``auto`` for ``torchrun``, or
 ``host:port,nprocs,procid``) every rank runs this command: the turn
@@ -234,8 +235,8 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mtn_tpu_torch.cli.common import (init_parallel, print_args,
-                                          setup_logging)
+    from mtn_tpu_torch.cli.common import (init_parallel, kernel_launches,
+                                          print_args, setup_logging)
     setup_logging(args.verbose)
     print_args(args)
     device, shardings = init_parallel(args, args.turn_batch)
@@ -302,6 +303,7 @@ def main(argv=None):
         model, test_data, decode_cfg, data_cfg, vocab, device,
         feature_dtype=args.feature_transfer or model_cfg.dtype,
         ref_data=ref_data, log_hyps=args.verbose >= 1, shardings=shardings)
+    log.info("kernel launches: %s", json.dumps(kernel_launches()))
     from mtn_tpu_torch.parallel.multihost import is_primary, shutdown
     # every rank holds the whole (gathered) result; rank 0 writes it
     if args.output and is_primary():

@@ -20,15 +20,17 @@ not finite. On a GPU each train and validation step whose shape has
 come before replays one captured CUDA graph
 (``mtn_tpu_torch/train/graphs.py``; not under ``--nan-checks 1`` or a
 mesh), and each epoch logs the steps, shapes, captures and eager steps
-so far. Under ``--multihost`` every rank runs this command: each
-batch's rows are cut over the ``data`` ranks, the model over the
-``model`` ranks, and rank 0 alone writes the logs, the sidecars and the
-checkpoints (full tensors, loadable on one device).
+so far, and the hand-written kernels' launches in its train steps and
+in its validation (0 on the CPU). Under ``--multihost`` every rank runs
+this command: each batch's rows are cut over the ``data`` ranks, the
+model over the ``model`` ranks, and rank 0 alone writes the logs, the
+sidecars and the checkpoints (full tensors, loadable on one device).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 
@@ -128,8 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mtn_tpu_torch.cli.common import (init_parallel, print_args,
-                                          setup_logging)
+    from mtn_tpu_torch.cli.common import (init_parallel, kernel_launches,
+                                          print_args, setup_logging)
     setup_logging(args.verbose)
     print_args(args)
     device, shardings = init_parallel(args, args.batch_size)
@@ -294,6 +296,7 @@ def main(argv=None):
             accum = args.accum_steps
             if accum > 1:
                 it = accumulated(it, accum, pad=trainer.pad)
+            at_start = kernel_launches()
             # logged step/batch indices stay in batch units under accumulation
             state, train_loss = trainer.run_epoch(
                 state, it, base_seed, train=True,
@@ -306,11 +309,16 @@ def main(argv=None):
                 step_callback_every=ckpt_every)
             log.info("epoch: %d  train loss: %f", epoch + 1, train_loss)
             log.info("-------validation--------")
+            at_valid = kernel_launches()
             vit = BatchIterator(valid_data, valid_plans, data_cfg,
                                 train=False, transform=to_device,
                                 feature_cache=feature_cache)
             _, valid_loss = trainer.run_epoch(state, vit, train=False)
             log.info("epoch: %d validation loss: %f", epoch + 1, valid_loss)
+            at_end = kernel_launches()
+            log.info("kernel launches: train %s, validation %s", json.dumps(
+                {k: at_valid[k] - at_start[k] for k in at_start}), json.dumps(
+                {k: at_end[k] - at_valid[k] for k in at_start}))
             steps = trainer.graphs
             if steps.batches:
                 log.info("step programs: %d steps, %d shapes, %d captures, "

@@ -223,10 +223,12 @@ class Lockstep:
 
     def stop(self) -> None:
         """Send ``stop`` after the calls already queued; the followers
-        return from :meth:`ServingSession.follow`."""
+        return from :meth:`ServingSession.follow`, and every rank leaves
+        the command group (:meth:`ServingSession._leave`)."""
         if self._thread.is_alive():
             self.call("stop", ())
             self._thread.join()
+            self.session._leave()
 
     def _loop(self):
         import queue
@@ -433,7 +435,7 @@ class ServingSession:
         return self._run(op, args, sink)
 
     def _check_caller(self) -> None:
-        if self._group is not None and self.lockstep is None:
+        if self.mesh_rank != 0:
             raise RuntimeError(
                 f"rank {self.mesh_rank} of a served mesh runs rank 0's "
                 "calls: call follow()")
@@ -474,6 +476,7 @@ class ServingSession:
         while True:
             op, args = _broadcast(None, self._group)
             if op == "stop":
+                self._leave()
                 return done
             if op != "ping":
                 self._run(op, args)
@@ -484,6 +487,20 @@ class ServingSession:
         ranks return from :meth:`follow`. Nothing to do on one process."""
         if self.lockstep is not None:
             self.lockstep.stop()
+
+    def _leave(self) -> None:
+        """Every rank, after ``stop``: a barrier, so that no rank leaves
+        before each follower has its ``stop``; then the command group is
+        destroyed and its last reference dropped, which joins its gloo
+        worker threads here. A worker still holding the ``stop``
+        broadcast's tensors when the interpreter shuts down would take
+        the GIL to free them, and the process would abort."""
+        import torch.distributed as dist
+        group, self._group = self._group, None
+        if self.lockstep is not None:
+            self.lockstep.group = None
+        dist.barrier(group=group)
+        dist.destroy_process_group(group)
 
     def _next_fold(self) -> int:
         fold = self._sample_calls

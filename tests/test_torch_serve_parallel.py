@@ -264,7 +264,7 @@ def worlds(tiny_corpus, tmp_path_factory):
         for p, _ in procs.values():
             p.kill()
     return dict(served=served, single=single, jax=jax_out, rcs=rcs,
-                logs=logs)
+                logs=logs, root=root)
 
 
 def _nbests(results):
@@ -406,3 +406,51 @@ def test_healthz_stats_and_metrics_report_the_mesh(worlds, name):
     for axis, n in shape.items():
         assert f'mtn_mesh_size{{axis="{axis}"}} {n}' in got["metrics"]
     assert 'mtn_commands_total{op="reload"} 2' in got["metrics"]
+
+
+LEAVE_RANK = """
+import json, os, sys
+from mtn_tpu_torch.config import DecodeConfig
+from mtn_tpu_torch.parallel import make_mesh
+from mtn_tpu_torch.parallel.multihost import initialize, shutdown
+from mtn_tpu_torch.serve import ServingSession
+port, rank, data, model = (int(a) for a in sys.argv[1:5])
+initialize(f"localhost:{port}", 2, rank, device="cpu")
+mesh = make_mesh(data=data, model=model)
+threads = lambda: len(os.listdir("/proc/self/task"))
+before = threads()
+s = ServingSession.from_checkpoint("ckpt/mtn_best", DecodeConfig(
+    beam=2, nbest=2, maxlen=5, turn_batch=4), mesh=mesh, device="cpu")
+during = threads()
+s.close() if rank == 0 else s.follow()
+print(json.dumps(dict(before=before, during=during, after=threads(),
+                      left=s._group is None)))
+shutdown()
+"""
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def test_leaving_the_served_mesh_joins_its_command_threads(worlds, mesh):
+    """After ``stop``, rank 0's ``close`` and a follower's ``follow`` leave
+    the command group: it is dropped and its gloo worker threads are
+    joined before either returns, so none is left to free the last
+    broadcast's tensors while the interpreter shuts down (which aborted
+    a rank now and then)."""
+    port = _free_port()
+    data, model = mesh.split("x")
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", LEAVE_RANK, str(port), str(r), data, model],
+        cwd=worlds["root"] / f"r{r}", env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        got = json.loads(out.splitlines()[-1])
+        assert got["left"]
+        assert got["during"] > got["before"]   # the command group's
+        assert got["after"] == got["before"], (got, err[-4000:])

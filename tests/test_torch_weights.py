@@ -3,6 +3,7 @@ that the port imports no JAX and nothing of mtn_tpu."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -183,9 +184,11 @@ def test_import_guard_finds_every_kind_of_use():
 
 
 def test_port_and_chip_smoke_never_use_the_jax_package():
-    """Every .py of the port and ``chip_smoke.py``, parsed: no use of
-    ``mtn_tpu`` anywhere, lazy imports inside functions included."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    """Every .py of the port, ``chip_smoke.py`` and the port's readiness
+    check, parsed: no use of ``mtn_tpu`` anywhere, lazy imports inside
+    functions included."""
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "check_dstc7_data_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mtn_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 40
@@ -196,3 +199,36 @@ def test_port_and_chip_smoke_never_use_the_jax_package():
         if uses:
             bad[os.path.relpath(path, REPO)] = uses
     assert not bad, bad
+
+
+def shell_jax_package_uses(text: str):
+    """(line, text) of every line of a shell script that could run the JAX
+    package or its drivers: a ``mtn_tpu.`` module, ``train.py`` or
+    ``generate.py``. Comments are skipped."""
+    found = []
+    for n, line in enumerate(text.splitlines(), 1):
+        code = re.sub(r"(^|\s)#.*$", "", line)
+        if re.search(r"\bmtn_tpu\.|\b(train|generate)\.py\b", code):
+            found.append((n, line.strip()))
+    return found
+
+
+def test_shell_guard_finds_every_kind_of_use():
+    src = ("python train.py --a 1\n"
+           "  python generate.py \\\n"
+           "python -m mtn_tpu.cli.evaluate score a b\n"
+           "x=$(python -m mtn_tpu.data.features)\n"
+           "# python train.py in a comment\n"
+           "python -m mtn_tpu_torch.cli.train --x 1  # not generate.py\n"
+           "python -m mtn_tpu_torch.cli.evaluate annotation a b\n")
+    assert [n for n, _ in shell_jax_package_uses(src)] == [1, 2, 3, 4]
+
+
+def test_run_torch_sh_never_calls_the_jax_package():
+    """``run_torch.sh``: no stage runs ``mtn_tpu``, ``train.py`` or
+    ``generate.py``; every stage runs the port's CLIs."""
+    with open(os.path.join(REPO, "run_torch.sh")) as f:
+        text = f.read()
+    assert not shell_jax_package_uses(text)
+    for cli in ("train", "generate", "evaluate"):
+        assert f"python -m mtn_tpu_torch.cli.{cli} " in text
