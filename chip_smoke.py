@@ -854,6 +854,22 @@ IN_FLIGHT = 8              # cli.generate's MAX_IN_FLIGHT
 
 
 @contextlib.contextmanager
+def capture_seconds():
+    """The seconds of each program set built inside the block (its
+    ``*capture`` spans, :func:`mtn_tpu_torch.utils.profiling.recording`,
+    less the tracer's own ``profiler.*`` spans inside them), filled in
+    when the block ends."""
+    from mtn_tpu_torch.utils import profiling
+    built = []
+    with profiling.recording() as rec:
+        yield built
+    ns = lambda sp: sp.end_ns - sp.start_ns
+    built.extend((ns(sp) - sum(ns(t) for t in rec.spans if t.parent is sp
+                               and t.name.startswith("profiler."))) / 1e9
+                 for sp in rec.spans if sp.name.endswith("capture"))
+
+
+@contextlib.contextmanager
 def no_host_reads(torch):
     """Raise at any operation that waits for the device inside the block
     (``torch.cuda.set_sync_debug_mode("error")``): a read of a device
@@ -925,8 +941,10 @@ def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
             secs.append(time.perf_counter() - t0)
             return res
         eager, e_n, _ = run_path(torch, ak, fk, lambda: timed(twin))
-        runs = [run_path(torch, ak, fk, lambda i=i: timed(dec, i == 2))
-                for i in range(3)]
+        with capture_seconds() as built:   # the shapes' eager, captured
+            runs = [run_path(torch, ak, fk, lambda: timed(dec))
+                    for _ in range(2)]
+        runs.append(run_path(torch, ak, fk, lambda: timed(dec, True)))
         ps = list(dec.graphs.sets.values())
         watched = launches[-len(batches):]
         out[name] = dict(
@@ -934,7 +952,7 @@ def graph_equality(torch, ak, fk, model, dbs, rank_db, cands) -> dict:
                         for a, r in zip(eager, run)),
             launches_eager=e_n,
             launches_graphed=[n for _, n, _ in runs], eager_s=secs[0],
-            graphed_s=secs[1:], capture_s=[p.capture_s() for p in ps],
+            graphed_s=secs[1:], capture_s=built,
             host_reads_before_fetch=0, graph_launches_per_batch=watched,
             one_launch=watched == [1] * len(batches),
             reads=sum(p.reads for p in ps), replays=sum(p.replays for p in ps),
@@ -1157,11 +1175,12 @@ def graph_timing(torch, ak, fk, graphs, model, dbs) -> dict:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             allocated = torch.cuda.memory_allocated()
-            dec.beam_batch_raw(dbs[0])          # the second: captured
+            with capture_seconds() as built:
+                dec.beam_batch_raw(dbs[0])      # the second: captured
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             ps = next(iter(dec.graphs.sets.values()))
-            row = dict(k=k, capture_s=ps.capture_s(),
+            row = dict(k=k, capture_s=built,
                        pool_bytes=torch.cuda.memory_reserved() - reserved,
                        live_bytes=torch.cuda.memory_allocated() - allocated)
             ps.reads = ps.replays = ps.launches = 0
@@ -1493,11 +1512,11 @@ def stream_phase(torch, ak, fk, corpus: dict) -> dict:
             first = stream_run(torch, ak, fk, dec, db, style, 0)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-            captured = stream_run(torch, ak, fk, dec, db, style, 0)
+            with capture_seconds() as built:
+                captured = stream_run(torch, ak, fk, dec, db, style, 0)
             torch.cuda.empty_cache()
-            ps = stream_sets(dec)[style]
             sets[style] = dict(
-                capture_s=ps.capture_s(),
+                capture_s=built,
                 pool_bytes=torch.cuda.memory_reserved() - reserved,
                 first_equals_captured=first["yields"] == captured["yields"],
                 first_program_runs=first["program_runs"])
@@ -2001,7 +2020,8 @@ def served_streams(torch, ak, fk, session, base, bodies, first, counted,
     import threading
     from mtn_tpu_torch.decode.graphs import StreamPrograms
     dec = session.decoder
-    captured, _ = timed_stream(base, bodies[2])    # the shape's second
+    with capture_seconds() as built:
+        captured, _ = timed_stream(base, bodies[2])  # the shape's second
     sets = [ps for ps in dec.graphs.sets.values()
             if isinstance(ps, StreamPrograms)]
     runs = sum(ps.replays for ps in sets)
@@ -2018,7 +2038,7 @@ def served_streams(torch, ak, fk, session, base, bodies, first, counted,
                captured == graphed == eager == first,
                host_ms_per_step=ms, eager_host_ms_per_step=eager_ms,
                program_runs_per_step=(runs - 1) / steps, launches=box,
-               capture_s=[ps.capture_s() for ps in sets])
+               capture_s=built)
     ok = out["graphed_equals_eager"] and out["program_runs_per_step"] == 1
     if in_flight:
         load = {}
@@ -2512,8 +2532,7 @@ def aot_stream(torch, ak, fk, session, live, req) -> dict:
                live_eager_host_ms_per_step=eager_ms / steps,
                live_graphed_host_ms_per_step=graphed[-1][1] / steps,
                equals_live=all(w == got for w, _ in graphed + [(eager, 0)]),
-               program_runs_per_step=(runs - 1) / steps, launches=launches,
-               capture_s=ps.capture_s())
+               program_runs_per_step=(runs - 1) / steps, launches=launches)
     out["ok"] = bool(out["equals_live"] and out["program_runs_per_step"]
                      == 1 and min(launches.values()) > 0)
     return out
@@ -3589,6 +3608,7 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
     sg, se = tg.state_from(sd), te.state_from(sd)
     same_metrics = same_masks = same_launches = True
     kinds, masks, launches, captured, pool = [], [], [], [], None
+    capture_s = None
     for _ in range(TRAIN_GRAPH_STEPS):
         counts = []
         for tr, state in ((te, se), (tg, sg)):
@@ -3598,7 +3618,7 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved()
             n0 = (ak.KERNEL.launches, fk.KERNEL.launches)
-            with mask_tape(torch) as tape:
+            with mask_tape(torch) as tape, capture_seconds() as built:
                 metrics = step(tr, state, batch)
                 torch.cuda.synchronize()
             counts.append((ak.KERNEL.launches - n0[0],
@@ -3608,6 +3628,7 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
                 continue
             if tr.graphs.captures > before[0]:
                 kinds.append("capture")
+                capture_s = built
                 captured = [t for c, t in tape if c]
                 got_masks = [t for c, t in tape if not c]   # the warm-up
                 torch.cuda.empty_cache()
@@ -3630,7 +3651,6 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
                                                    se.opt_state.count) and all(
         torch.equal(a, b) for a, b in zip(state_tensors(sg),
                                           state_tensors(se)))
-    ps = next(iter(tg.graphs.sets.values()))
     ntok = want["ntokens"].item()
     resumed = None
     if resume_dir is not None:
@@ -3659,7 +3679,7 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
     out = dict(steps=kinds, masks_per_step=masks,
                launches_per_step=launches, metrics_bitwise=same_metrics,
                masks_bitwise=same_masks, launches_equal=same_launches,
-               state_bitwise=same_state, capture_s=ps.capture_s(),
+               state_bitwise=same_state, capture_s=capture_s,
                pool_bytes=pool, tokens_per_step=ntok, **timing,
                runner=runner_counts([tg.graphs]), resumed=resumed)
     out["ok"] = (same_metrics and same_masks and same_launches
@@ -3667,7 +3687,7 @@ def graph_twins(torch, ak, fk, cfg, tcfg, sd, batch, step,
                  and (resumed is None or resumed["bitwise"])
                  and set(kinds[2:]) == {"replay"}
                  and all(r["counts_match"] for r in timing.values()))
-    del tg, te, sg, se, ps
+    del tg, te, sg, se
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3899,10 +3919,11 @@ def traffic_run(torch, corpus: dict, root: str, name: str,
 
     def step_set(sg, key, make):
         n = sg.captures
-        ps = ProgramCache._set(sg, key, make)
+        with capture_seconds() as seconds:
+            ps = ProgramCache._set(sg, key, make)
         if sg.captures > n:
             built.append(key)
-            capture_s[0] += sum(ps.capture_s().values())
+            capture_s[0] += sum(seconds)
         return ps
     gc.collect()
     torch.cuda.empty_cache()

@@ -69,9 +69,12 @@ def add_device_args(parser: argparse.ArgumentParser):
                         help="fuse decode-time self-attention q/k/v into "
                              "one (D, 3D) product")
     parser.add_argument("--profile-dir", default=None, type=str,
-                        help="torch.profiler trace output directory (the "
-                             "train CLI traces; the decode CLIs accept and "
-                             "ignore it, as in mtn_tpu)")
+                        help="trace output directory: the train CLI "
+                             "writes a torch.profiler trace_<pid>.json, "
+                             "cli.generate its decode pass's host and "
+                             "device spans as decode_spans_<pid>.json "
+                             "(Chrome trace format); cli.rank accepts and "
+                             "ignores it")
     parser.add_argument("--nan-checks", default=0, type=int,
                         help="raise on a non-finite loss or gradient (one "
                              "host sync per train step)")

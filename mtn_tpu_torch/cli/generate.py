@@ -18,7 +18,11 @@ uploads the next batches while the device decodes. In beam mode up to
 in JAX: a graphed batch is one launch that reads nothing on the host, so
 the device decodes the queued batches back to back while the host
 converts the finished ones; greedy and sample batches run one at a time.
-The run logs the hand-written kernels' launches (0 on the CPU).
+The run logs the hand-written kernels' launches (0 on the CPU). With
+``--profile-dir DIR`` it records the pass's spans
+(:func:`mtn_tpu_torch.utils.profiling.recording`) and writes them, with
+the device spans on a ``cuda:0`` track, as the Chrome trace
+``DIR/decode_spans_<pid>.json``.
 
 Under ``--multihost`` (``auto`` for ``torchrun``, or
 ``host:port,nprocs,procid``) every rank runs this command: the turn
@@ -30,12 +34,15 @@ rank 0 writes the output.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import logging
 import queue
 import threading
 import time
+
+from mtn_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -115,21 +122,62 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
     each answer) and a dict of decode statistics. With ``shardings`` each
     rank decodes its rows of every batch and every rank gets the whole
     result. Up to ``MAX_IN_FLIGHT`` beam batches are launched before the
-    oldest is fetched; the result does not depend on it."""
+    oldest is fetched; the result does not depend on it.
+
+    Under :func:`mtn_tpu_torch.utils.profiling.recording` the pass records
+    its spans (``decode.pass``, whose counters are the pass's; ``.plan``,
+    the producer's ``.make_batch`` and ``.upload``, ``.queue_wait``,
+    ``.launch``, ``.fetch``, ``.results``; the decoder's below them) and
+    device spans, each batch's under its index, and resolves the device
+    spans once every batch has been fetched (the root's last child,
+    ``profiler.resolve``)."""
+    rec = profiling.active()
+    with profiling.span("decode.pass") as root:
+        if rec is not None:
+            rec.anchor(device)
+            before = _pass_counters()
+        result, stats, steps, graphs = _decode_pass(
+            root, model, dataset, decode_cfg, data_cfg, vocab, device,
+            feature_dtype, ref_data, log_hyps, shardings)
+        if rec is not None:
+            after = _pass_counters()
+            root.count(turns=stats["turns"], batches=stats["batches"],
+                       eager_batches=graphs.eager, captures=graphs.captures,
+                       evictions=graphs.evictions, exit_steps=steps,
+                       **{k: after[k] - before[k] for k in after})
+            with profiling.span("profiler.resolve"):
+                rec.resolve()
+    return result, stats
+
+
+def _pass_counters() -> dict:
+    """The process's graph launches and hand-written kernel launches."""
+    from mtn_tpu_torch.cli.common import kernel_launches
+    from mtn_tpu_torch.ops import graph_loop
+    return {"graph_launches": graph_loop.LAUNCHES,
+            "kernel_launches": sum(kernel_launches().values())}
+
+
+def _decode_pass(root, model, dataset, decode_cfg, data_cfg, vocab, device,
+                 feature_dtype, ref_data, log_hyps, shardings):
+    """:func:`generate_responses`' pass: (result, stats, each batch's exit
+    step, the decoder's program cache)."""
     from mtn_tpu_torch.data.batching import (make_batch, make_batch_indices,
                                              uniform_plans)
     from mtn_tpu_torch.data.vocab import vocab_list
     from mtn_tpu_torch.decode.beam import BeamDecoder, detokenize
     from mtn_tpu_torch.train.batch import to_device_fn
 
+    span = profiling.span
     vlist = vocab_list(vocab)
     decoder = BeamDecoder(model, decode_cfg, shardings=shardings)
     to_device = to_device_fn(feature_dtype, shardings, device)
-    plans, n = make_batch_indices(dataset, batchsize=decode_cfg.turn_batch,
-                                  max_length=10 ** 9,
-                                  separate_caption=data_cfg.separate_caption)
-    if decode_cfg.uniform_shapes and plans:
-        plans = uniform_plans(plans)
+    with span("decode.plan"):
+        plans, n = make_batch_indices(
+            dataset, batchsize=decode_cfg.turn_batch, max_length=10 ** 9,
+            separate_caption=data_cfg.separate_caption)
+        if decode_cfg.uniform_shapes and plans:
+            plans = uniform_plans(plans)
     answers, scores, nbest = {}, {}, {}
     steps = []
     q: "queue.Queue" = queue.Queue(maxsize=3)
@@ -137,62 +185,78 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
 
     def produce():
         try:
-            for plan in plans:
-                hb = make_batch(dataset, plan,
-                                separate_caption=data_cfg.separate_caption,
-                                skip=data_cfg.skip,
-                                length_bucket=data_cfg.length_bucket,
-                                feature_bucket=data_cfg.feature_bucket,
-                                pad_rows_to=decode_cfg.turn_batch)
-                q.put((plan, to_device(hb)))
+            for bi, plan in enumerate(plans):
+                with span("decode.make_batch", bi, root):
+                    hb = make_batch(
+                        dataset, plan,
+                        separate_caption=data_cfg.separate_caption,
+                        skip=data_cfg.skip,
+                        length_bucket=data_cfg.length_bucket,
+                        feature_bucket=data_cfg.feature_bucket,
+                        pad_rows_to=decode_cfg.turn_batch)
+                with span("decode.upload", bi, root):
+                    db = to_device(hb)
+                q.put((plan, db))
         except BaseException as e:  # re-raised by the consumer below
             err.append(e)
         finally:
             q.put(None)
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     t_first = None
     in_flight: list = []
 
     def drain_one():
         nonlocal t_first
-        plan, raw, valid = in_flight.pop(0)
-        results = decoder.beam_results(raw, valid)  # waits for the device
+        bi, plan, raw, valid = in_flight.pop(0)
+        with span("decode.fetch", bi):
+            results = decoder.beam_results(raw, valid)  # waits for it
         steps.append(raw.n_steps)
         if t_first is None:
-            t_first = time.time()
+            t_first = time.perf_counter()
         for qa_id, res in zip(plan.qa_ids, results):
             nbest[qa_id] = res.texts(vlist, vocab["<eos>"])
             answers[qa_id] = detokenize(res.tokens[0], vlist,
                                         vocab["<eos>"])
             scores[qa_id] = res.scores[0]
 
-    producer = threading.Thread(target=produce, daemon=True)
+    producer = threading.Thread(target=produce, name="decode-producer",
+                                daemon=True)
     producer.start()
-    for bi, (plan, db) in enumerate(iter(q.get, None)):
+    bi = 0
+    while True:
+        with span("decode.queue_wait", bi):
+            item = q.get()
+        if item is None:
+            break
+        plan, db = item
         if decode_cfg.decode_style == "beam_search":
-            in_flight.append((plan, decoder.beam_batch_raw(db),
-                              decoder.gather_rows(db.valid)))
+            with span("decode.launch", bi):
+                in_flight.append((bi, plan, decoder.beam_batch_raw(db),
+                                  decoder.gather_rows(db.valid)))
             if len(in_flight) >= MAX_IN_FLIGHT:
                 drain_one()
+            bi += 1
             continue
         # the plan index folds into the sampler's noise, as in JAX
-        rows = (decoder.sample_batch(db, fold=bi)
-                if decode_cfg.decode_style == "sample"
-                else decoder.greedy_batch(db))
+        with span("decode.launch", bi):
+            rows = (decoder.sample_batch(db, fold=bi)
+                    if decode_cfg.decode_style == "sample"
+                    else decoder.greedy_batch(db))
         for qa_id, row in zip(plan.qa_ids, rows):
             answers[qa_id] = " ".join(vlist[t] for t in row)
             scores[qa_id] = 0.0
         if t_first is None:
-            t_first = time.time()
+            t_first = time.perf_counter()
+        bi += 1
     while in_flight:
         drain_one()
     producer.join()
     if err:
         raise err[0]
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
     if decode_cfg.decode_style == "beam_search" and t_first is not None:
-        steady = time.time() - t_first
+        steady = time.perf_counter() - t_first
         log.info("first batch (run eagerly) after %.1fs; steady-state "
                  "%.2f responses/sec", t_first - t0,
                  max(n - decode_cfg.turn_batch, 0) / max(steady, 1e-9))
@@ -200,37 +264,41 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
     result_dialogs = []
     qa_id = 0
     undisclosed = decode_cfg.undisclosed_only
-    for idx, dialog in enumerate(dataset.original["dialogs"]):
-        vid = dialog["image_id"]
-        out_dialog = dialog["dialog"][-1:] if undisclosed \
-            else dialog["dialog"]
-        if undisclosed and ref_data is not None and \
-                ref_data["dialogs"][idx]["image_id"] != vid:
-            raise ValueError(f"labeled test set disagrees at dialog {idx}")
-        pred = {"image_id": vid, "dialog": copy.deepcopy(out_dialog)}
-        result_dialogs.append(pred)
-        for t, qa in enumerate(out_dialog):
-            if undisclosed and qa["answer"] != "__UNDISCLOSED__":
-                raise ValueError(f"{vid} turn {t}: answer is disclosed")
-            if log_hyps:
-                log.info("%d %s_%d", qa_id, vid, t)
-                log.info("QS: %s", qa["question"])
-                for ni, (hyp, sc) in enumerate(
-                        nbest.get(qa_id, [(answers[qa_id], scores[qa_id])])):
-                    log.info("HYP[%d]: %s  ( %f )", ni + 1, hyp, sc)
-            pred["dialog"][t]["answer"] = answers[qa_id]
-            qa_id += 1
+    with span("decode.results"):
+        for idx, dialog in enumerate(dataset.original["dialogs"]):
+            vid = dialog["image_id"]
+            out_dialog = dialog["dialog"][-1:] if undisclosed \
+                else dialog["dialog"]
+            if undisclosed and ref_data is not None and \
+                    ref_data["dialogs"][idx]["image_id"] != vid:
+                raise ValueError(
+                    f"labeled test set disagrees at dialog {idx}")
+            pred = {"image_id": vid, "dialog": copy.deepcopy(out_dialog)}
+            result_dialogs.append(pred)
+            for t, qa in enumerate(out_dialog):
+                if undisclosed and qa["answer"] != "__UNDISCLOSED__":
+                    raise ValueError(f"{vid} turn {t}: answer is disclosed")
+                if log_hyps:
+                    log.info("%d %s_%d", qa_id, vid, t)
+                    log.info("QS: %s", qa["question"])
+                    for ni, (hyp, sc) in enumerate(nbest.get(
+                            qa_id, [(answers[qa_id], scores[qa_id])])):
+                        log.info("HYP[%d]: %s  ( %f )", ni + 1, hyp, sc)
+                pred["dialog"][t]["answer"] = answers[qa_id]
+                qa_id += 1
+    graphs = decoder.graphs
     stats = {
         "turns": n, "batches": len(plans), "seconds": wall,
         "responses_per_sec": n / max(wall, 1e-9),
         "first_batch_seconds": (t_first - t0) if t_first else None,
         "mean_exit_step": (sum(steps) / len(steps)) if steps else None,
+        "captures": graphs.captures, "eager_batches": graphs.eager,
         "device": str(device),
     }
     log.info("decoded %d turns in %.2fs (%.2f responses/sec); mean beam "
              "exit step %s", n, wall, stats["responses_per_sec"],
              stats["mean_exit_step"])
-    return {"dialogs": result_dialogs}, stats
+    return {"dialogs": result_dialogs}, stats, steps, graphs
 
 
 def main(argv=None):
@@ -299,10 +367,16 @@ def main(argv=None):
         with open(args.labeled_test) as f:
             ref_data = json.load(f)
     log.info("--------------------generate--------------------")
-    result, stats = generate_responses(
-        model, test_data, decode_cfg, data_cfg, vocab, device,
-        feature_dtype=args.feature_transfer or model_cfg.dtype,
-        ref_data=ref_data, log_hyps=args.verbose >= 1, shardings=shardings)
+    with (profiling.recording() if args.profile_dir
+          else contextlib.nullcontext()) as rec:
+        result, stats = generate_responses(
+            model, test_data, decode_cfg, data_cfg, vocab, device,
+            feature_dtype=args.feature_transfer or model_cfg.dtype,
+            ref_data=ref_data, log_hyps=args.verbose >= 1,
+            shardings=shardings)
+    if rec is not None:
+        log.info("decode spans written to %s", rec.write_chrome_trace(
+            args.profile_dir, "decode_spans"))
     log.info("kernel launches: %s", json.dumps(kernel_launches()))
     from mtn_tpu_torch.parallel.multihost import is_primary, shutdown
     # every rank holds the whole (gathered) result; rank 0 writes it

@@ -84,6 +84,7 @@ from mtn_tpu_torch.decode.graphs import GraphRunner, eager_stream, fetching
 from mtn_tpu_torch.models.mtn import MTN, DecodeState
 from mtn_tpu_torch.parallel.collectives import gather_rows
 from mtn_tpu_torch.train.batch import DeviceBatch, batch_masks, upload
+from mtn_tpu_torch.utils.profiling import active, driven_span, span
 
 
 def _round_up_int(n: int, m: int) -> int:
@@ -220,26 +221,37 @@ class BeamDecoder:
 
     @torch.inference_mode()
     def beam_eager(self, batch: DeviceBatch) -> BeamRaw:
-        """The eager beam loop, its early-stop test on the host."""
+        """The eager beam loop, its early-stop test on the host: the span
+        ``decode.eager_batch``, and a driven device span of the same name
+        that keeps its kernels."""
         cfg = self.cfg
-        state, (*carry, self_kv) = self.beam_prefix(batch)
-        step = self._stepper(state)
-        pos = self._positions(cfg.maxlen, batch.query.device)
-        n_steps = 0
-        for l in range(cfg.maxlen):
-            if cfg.early_stop and not beam_open(carry[1], carry[2], pos[l],
-                                                cfg):
-                break
-            *carry, self_kv = beam_step(step, pos[l], *carry, self_kv, cfg,
-                                        self.eos, self.unk)
-            n_steps = l + 1
-        return BeamRaw(*map(self.gather_rows, carry[2:5]), n_steps)
+        dev = batch.query.device
+        with span("decode.eager_batch"), \
+                driven_span("decode.eager_batch", dev):
+            state, (*carry, self_kv) = self.beam_prefix(batch)
+            step = self._stepper(state)
+            pos = self._positions(cfg.maxlen, dev)
+            n_steps = 0
+            for l in range(cfg.maxlen):
+                if cfg.early_stop and not beam_open(carry[1], carry[2],
+                                                    pos[l], cfg):
+                    break
+                *carry, self_kv = beam_step(step, pos[l], *carry, self_kv,
+                                            cfg, self.eos, self.unk)
+                n_steps = l + 1
+            return BeamRaw(*map(self.gather_rows, carry[2:5]), n_steps)
 
     @staticmethod
     def beam_results(raw: BeamRaw, valid) -> List[BeamResult]:
         """Fetch one decoded batch to the host and convert it;
-        ``raw.n_steps`` becomes an ``int``."""
-        with fetching(raw.ready):
+        ``raw.n_steps`` becomes an ``int``. Under the span recorder a
+        graphed batch's wait for its ``ready`` event is the span
+        ``decode.wait``, the copies and the conversion ``decode.convert``
+        (unrecorded, the fetch stream waits for the event on the card)."""
+        if raw.ready is not None and active() is not None:
+            with span("decode.wait"):
+                raw.ready.synchronize()
+        with span("decode.convert"), fetching(raw.ready):
             out = completions_to_results(
                 raw.comp_scores.cpu().numpy(), raw.comp_buf.cpu().numpy(),
                 raw.comp_len.cpu().numpy(), np.asarray(valid.cpu()))

@@ -104,7 +104,6 @@ import contextlib
 import dataclasses
 import functools
 import threading
-import time
 from collections import OrderedDict
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -116,6 +115,7 @@ from mtn_tpu_torch.decode.steps import (all_ended_t, beam_open_t,
                                         token_step_at)
 from mtn_tpu_torch.ops import _build
 from mtn_tpu_torch.ops.graph_loop import GraphLoop, HostLoop
+from mtn_tpu_torch.utils import profiling
 
 # steps a chunk, from the card's sweep (chip_smoke [graphs]): a step past
 # the exit costs more device time than one more pass of the WHILE node
@@ -201,9 +201,8 @@ class Program:
     def __init__(self, fn: Callable[[], None], capture: bool, pool=None,
                  generators: Sequence[torch.Generator] = (),
                  keep: bool = False):
-        self.fn, self.graph, self.calls, self.capture_s = fn, None, {}, 0.0
+        self.fn, self.graph, self.calls = fn, None, {}
         if capture:
-            t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
             for g in generators:
                 self.graph.register_generator_state(g)
@@ -215,7 +214,6 @@ class Program:
                 with ctx:
                     fn()
             self.calls, self.fn = dict(calls), None
-            self.capture_s = time.perf_counter() - t0
 
     def __call__(self) -> None:
         if self.graph is None:
@@ -243,12 +241,14 @@ class ProgramSet:
                generators: Sequence[torch.Generator] = (),
                keep: bool = False) -> None:
         """Capture ``programs`` in their order after running ``warm_up``
-        once on a side stream (run nothing when not capturing)."""
+        once on a side stream (run nothing when not capturing); the
+        warm-up is the driven device span ``capture.warm_up``."""
         if self.capture:
             main = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(main)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), \
+                    profiling.driven_span("capture.warm_up", self.device):
                 for fn in warm_up:
                     fn()
             main.wait_stream(side)
@@ -263,9 +263,6 @@ class ProgramSet:
     def load(self, batch) -> None:
         """Copy ``batch`` into the static inputs."""
         _copy_into(self.batch, batch)
-
-    def capture_s(self) -> Dict[str, float]:
-        return {name: p.capture_s for name, p in self.programs.items()}
 
 
 class LoopPrograms(ProgramSet):
@@ -629,7 +626,11 @@ class ProgramCache:
     :meth:`_victim` names when it has been seen more than ``margin``
     times as often. ``batches`` counts the lookups, ``captures`` the sets
     built, ``evictions`` the sets dropped for another, ``eager`` the
-    batches refused a set."""
+    batches refused a set. Building a set (its warm-up, its captures and,
+    for a loop, the graph's assembly and instantiation) is the span
+    ``capture_span``."""
+
+    capture_span = "capture"
 
     def __init__(self, capture: bool, max_sets: int, max_seen: int,
                  margin: int = 1):
@@ -670,7 +671,8 @@ class ProgramCache:
                 if hasattr(dropped, "close"):
                     dropped.close()
                 self.evictions += 1
-            ps = self.sets[key] = make()
+            with profiling.span(self.capture_span):
+                ps = self.sets[key] = make()
             self.captures += 1
         self.sets.move_to_end(key)
         return ps
@@ -680,7 +682,11 @@ class GraphRunner(ProgramCache):
     """A decoder's program sets by key and its decodes: through a set
     where one is kept or admitted, else through the decoder's eager loop
     (see the module's docstring). One decode runs at a time: the sets'
-    buffers are static."""
+    buffers are static. A graphed batch's copy into the static inputs,
+    its launch and the copies of its outputs are the device span
+    ``decode.graphed_batch``."""
+
+    capture_span = "decode.capture"
 
     def __init__(self, capture: bool = True):
         super().__init__(capture, MAX_PROGRAMS, MAX_SEEN)
@@ -704,7 +710,8 @@ class GraphRunner(ProgramCache):
                                                      self.capture))
             if ps is None:
                 return dec.beam_eager(batch)
-            pool, n_steps = ps.run(batch)
+            with profiling.device_span("decode.graphed_batch", ps.device):
+                pool, n_steps = ps.run(batch)
             ready = _ready() if ps.capture else None
         return BeamRaw(*pool, n_steps, ready=ready)
 
@@ -720,8 +727,9 @@ class GraphRunner(ProgramCache):
                 dec, batch, sampled, self.capture))
             if ps is None:
                 return dec.tokens_eager(batch, style, fold)
-            return ps.run(batch, dec._uniforms(
-                style, fold, batch.query.shape[0], batch.query.device))
+            with profiling.device_span("decode.graphed_batch", ps.device):
+                return ps.run(batch, dec._uniforms(
+                    style, fold, batch.query.shape[0], batch.query.device))
 
     def rank(self, dec, batch, cand: torch.Tensor, cand_len: torch.Tensor
              ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:

@@ -111,6 +111,8 @@ class StepGraphs(ProgramCache):
     docstring). ``captures`` counts the sets built, ``eager`` the steps
     refused a set."""
 
+    capture_span = "train.capture"
+
     def __init__(self, capture: bool = True):
         super().__init__(capture, MAX_PROGRAMS, MAX_SEEN, MARGIN)
         self.pool = None

@@ -311,8 +311,6 @@ def test_checkify_fn_and_timer():
     assert torch.equal(out["y"][0], torch.full((2,), 2.0))
     with pytest.raises(FloatingPointError, match="non-finite"):
         f(torch.tensor([-1.0]))
-    t = profiling.Timer()
-    assert t.elapsed() >= 0 and t.reset() >= 0
 
 
 def test_cli_train_batched_ae_writes_the_sidecar(tiny_corpus, tmp_path):
