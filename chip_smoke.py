@@ -34,7 +34,14 @@
    seeded random weights, on a synthetic DSTC7-format test set, and checks
    that every undisclosed answer was filled and that both kernels launched;
 5. checks the flagship model on the card against the same model on the CPU
-   (f32, plain versions) on a small batch;
+   (f32, plain versions) on a small batch; then ``[norm-kernel]``: the
+   sublayer boundary's residual add and LayerNorm (``csrc/norm.cu``)
+   against its plain chain in bf16 and f32 at 1 to 1,024 rows and D 128
+   to 4,096 (x_new bitwise; normed no further from the formula in f64
+   than the plain chain's, plus one last place at unit scale; two calls
+   bitwise), timed beside the plain chain at 1, 32, 160 and
+   1,024 rows, and a graphed av beam batch launching it 43 times a step
+   with the eager batch's n-bests bitwise;
 6. profiles one warm turn batch of the main path (torch.profiler): host
    wall time, device time by kernel group, the hand-written kernels'
    device time per call, and the device's idle share. Every decode batch
@@ -709,6 +716,8 @@ def kernel_group(name: str) -> str:
         return "attention (csrc)"
     if "ffn_" in name:
         return "ffn (csrc)"
+    if "add_norm" in name:
+        return "norm (csrc)"
     # cuBLASLt names its Hopper GEMMs nvjet_*
     if any(s in name for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
@@ -734,6 +743,77 @@ def device_groups(torch, prof):
     return groups, launches, sorted(top, reverse=True)[:8]
 
 
+# a beam step's host ranges, innermost first where they nest: (module,
+# owner in it or None, function, group)
+STEP_GROUPS = (
+    ("mtn_tpu_torch.models.layers", "RefLayerNorm", "forward", "norm"),
+    ("mtn_tpu_torch.models.layers", "ParamLinear", "forward", "bias adds"),
+    ("mtn_tpu_torch.models.layers", "Sublayer", "forward", "residual adds"),
+    ("mtn_tpu_torch.models.layers", None, "multi_head_attention",
+     "attention"),
+    ("mtn_tpu_torch.models.mtn", "MTN", "decode_step", "rest of the step"),
+    ("mtn_tpu_torch.decode.beam", None, "beam_step", "beam"),
+    ("mtn_tpu_torch.decode.beam", "BeamDecoder", "beam_prefix", "prefix"))
+# kernels filed by name before their host range
+NAMED_GROUPS = ("matmul (cuBLAS)", "ffn (csrc)", "norm (csrc)",
+                "attention (csrc)")
+
+
+@contextlib.contextmanager
+def step_ranges(torch):
+    """Each function of :data:`STEP_GROUPS` runs inside a
+    ``record_function`` range named after its group."""
+    import importlib
+    saved = []
+    for mod, owner, name, group in STEP_GROUPS:
+        obj = importlib.import_module(mod)
+        obj = getattr(obj, owner) if owner else obj
+        fn = getattr(obj, name)
+
+        def wrapped(*a, _fn=fn, _group=group, **kw):
+            with torch.profiler.record_function("group: " + _group):
+                return _fn(*a, **kw)
+        saved.append((obj, name, fn))
+        setattr(obj, name, wrapped)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def step_groups(prof, steps: int) -> dict:
+    """Kernels and device ms a step by group of a profile taken under
+    :func:`step_ranges`: a kernel in :data:`NAMED_GROUPS` by its name,
+    any other under its innermost range; the batch's prefix (encoder, AE
+    chain, cross K/V) apart, for the batch."""
+    out = {}
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", []):
+            labels, parent = [], evt
+            while parent is not None:
+                if parent.name.startswith("group: "):
+                    labels.append(parent.name[len("group: "):])
+                parent = parent.cpu_parent
+            group = kernel_group(k.name)
+            if "prefix" in labels:
+                group = "prefix"
+            elif group not in NAMED_GROUPS:
+                group = labels[0] if labels else "unlabelled"
+            row = out.setdefault(group, [0, 0.0])
+            row[0] += 1
+            row[1] += k.duration
+    prefix = out.pop("prefix", [0, 0.0])
+    return {"steps": steps,
+            "kernels_a_step": sum(n for n, _ in out.values()) / steps,
+            "device_ms_a_step": sum(us for _, us in out.values())
+            / steps / 1e3,
+            "by_group_a_step": {g: {"kernels": n / steps,
+                                    "device_ms": us / steps / 1e3}
+                                for g, (n, us) in sorted(out.items())},
+            "prefix": {"kernels": prefix[0], "device_ms": prefix[1] / 1e3}}
+
+
 def profile_decode(torch, prefix, test_set, fea_path):
     """One warm beam-decoded turn batch of the main path (bf16, both
     kernels), one graph launch: host wall time, the device's time on it
@@ -747,6 +827,7 @@ def profile_decode(torch, prefix, test_set, fea_path):
     from mtn_tpu_torch.decode.beam import BeamDecoder
     from mtn_tpu_torch.ops import attention_kernel as ak
     from mtn_tpu_torch.ops import ffn_kernel as fk
+    from mtn_tpu_torch.ops import norm_kernel as nk
     from mtn_tpu_torch.train.batch import device_batch
     from mtn_tpu_torch.weights import load_checkpoint, load_conf, load_model
     from torch.profiler import ProfilerActivity, profile
@@ -772,13 +853,15 @@ def profile_decode(torch, prefix, test_set, fea_path):
     timed = event_batches(torch, ak, fk, dec, [db], fetch=False)
     # kernel time by group from the eager twin of the same batch: the
     # profiler does not run over a graph with conditional nodes
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eager_twin(dec).beam_batch_raw(db)
+                             ProfilerActivity.CUDA]) as prof, \
+            step_ranges(torch):
+        eager = eager_twin(dec).beam_batch_raw(db)
         torch.cuda.synchronize()
     calls = {"attention (csrc)": ak.KERNEL.launches,
-             "ffn (csrc)": fk.KERNEL.launches}
+             "ffn (csrc)": fk.KERNEL.launches,
+             "norm (csrc)": nk.KERNEL.launches}
     groups, launches, top = device_groups(torch, prof)
     measured = launches > 0
     return {"wall_ms": timed["wall_ms"], "steps": int(raw.n_steps),
@@ -791,6 +874,8 @@ def profile_decode(torch, prefix, test_set, fea_path):
             "eager_device_ms_by_group": groups,
             "eager_device_launches": launches,
             "kernel_calls": calls,
+            "eager_step": step_groups(prof, int(eager.n_steps))
+            if measured else "not measured",
             "device_us_per_call": {
                 g: groups.get(g, 0.0) * 1e3 / n if measured and n
                 else "not measured" for g, n in calls.items()},
@@ -841,6 +926,151 @@ def event_batches(torch, ak, fk, dec, batches, depth: int = 0,
 def graph_loop_launches() -> int:
     from mtn_tpu_torch.ops import graph_loop
     return graph_loop.LAUNCHES
+
+
+# -- [norm-kernel]: a sublayer boundary's residual add and LayerNorm --------
+NORM_ROWS = (1, 5, 16, 32, 80, 160, 256, 1024)
+NORM_TIMED_ROWS = (1, 32, 160, 1024)
+NORM_BF16_SHARE = 0.99   # of bf16 outputs bitwise the plain chain's
+MANTISSA_BITS = {"float32": 23, "bfloat16": 7}
+
+
+def ulps_at_unit_scale(torch, got, want, dtype_name: str) -> float:
+    """max |got - want| in units of the dtype's last place at max(|want|,
+    1): a normed row has unit scale, and the order of its two sums shows
+    at that scale, not at an element's own (near 0 the formula's f32
+    rounding is already coarser than the element's last place)."""
+    mag = want.float().abs().clamp(min=1.0)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - MANTISSA_BITS[dtype_name])
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def norm_case(torch, nk, gen, dtype_name, R, D, parts="delta_bias",
+              param_dtype="float32", timed_case=False):
+    """The kernel against the plain chain on the card: x_new bitwise;
+    normed's distance from the plain chain's, and each one's distance
+    from the formula in f64 on the same x_new, in last places at unit
+    scale: the kernel no further from it than the plain chain is, plus
+    one last place (the two round the row's sums differently: the
+    kernel's in f64, the plain chain's in f32); in bf16 also within one
+    last place of the plain chain's, and bitwise for
+    ``NORM_BF16_SHARE`` of the outputs; two calls bitwise; with
+    ``timed_case``, times of both beside the bound (8·R·D bytes in
+    bf16: x and delta read, x_new and normed written)."""
+    dt, pdt = getattr(torch, dtype_name), getattr(torch, param_dtype)
+    mk = lambda *s, a=1.0: (a * torch.randn(*s, generator=gen)).to("cuda")
+    x = mk(R, 1, D, a=3.0).to(dt)
+    delta = mk(R, 1, D).to(dt) if parts != "none" else None
+    bias = mk(D, a=0.1).to(dt) if parts == "delta_bias" else None
+    scale, nbias = (mk(D, a=0.1) + 1).to(pdt), mk(D, a=0.02).to(pdt)
+    args = (x, delta, bias, scale, nbias, 1e-6)
+    n = nk.KERNEL.launches
+    got, again = nk.add_norm(*args), nk.add_norm(*args)
+    want = nk.add_norm_plain(*args)
+    torch.cuda.synchronize()
+    row = dict(kernel="add_norm", dtype=dtype_name, params=param_dtype,
+               shape=[R, D], parts=parts,
+               launches=nk.KERNEL.launches - n,
+               x_new_bitwise=torch.equal(got[0], want[0]),
+               normed_bitwise_share=(got[1] == want[1]).float().mean().item(),
+               normed_max_ulps=ulps_at_unit_scale(torch, got[1], want[1],
+                                                  dtype_name),
+               repeat_bitwise=all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+               finite=bool(torch.isfinite(got[1].float()).all()))
+    xd = want[0].double()     # the formula in f64 on the same x_new
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd - mean).square().sum(-1, keepdim=True) / (D - 1)
+    exact = scale.double() * (xd - mean) / (var.sqrt() + 1e-6) \
+        + nbias.double()
+    row["normed_ulps_from_f64"] = ulps_at_unit_scale(torch, got[1], exact,
+                                                     dtype_name)
+    row["plain_ulps_from_f64"] = ulps_at_unit_scale(torch, want[1], exact,
+                                                    dtype_name)
+    row["ok"] = (row["launches"] == 2 and row["x_new_bitwise"]
+                 and row["normed_ulps_from_f64"]
+                 <= row["plain_ulps_from_f64"] + 1
+                 and row["repeat_bitwise"] and row["finite"])
+    if dtype_name == "bfloat16":
+        # a last place of bf16 at unit scale is coarser than a wrong
+        # divisor or eps: hold the rounded output to the plain chain's
+        row["ok"] &= (row["normed_max_ulps"] <= 1
+                      and row["normed_bitwise_share"] >= NORM_BF16_SHARE)
+    if timed_case:
+        timed(row, "", lambda: nk.add_norm(*args))
+        timed(row, "plain_", lambda: nk.add_norm_plain(*args))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes(x, delta, *got), 0, dtype_name)
+    return row
+
+
+def norm_graphed_beam(torch, nk, corpus: dict) -> dict:
+    """One 32-turn av beam batch of the flagship (bf16, both kernels):
+    the eager loop and a graphed replay (the shape's third batch: its
+    first runs eagerly, its second captures), their n-bests bitwise,
+    and the kernel's launches in each, 43 a step (7 sublayers in each of
+    6 layers, and layer 0's input)."""
+    from mtn_tpu_torch.config import DecodeConfig
+    from mtn_tpu_torch.decode.beam import BeamDecoder
+    from mtn_tpu_torch.train.batch import device_batch
+    from mtn_tpu_torch.weights import load_model
+    hbs, cfg, sd = flagship_batches(corpus, 32)
+    cfg.use_pallas_attention = cfg.use_pallas_ffn = True
+    cfg.dtype = "bfloat16"
+    model = load_model(cfg, sd, "cuda")
+    db = device_batch(hbs[0], "cuda", "bfloat16")
+    dec = BeamDecoder(model, DecodeConfig(early_stop=True, **GRAPH_DECODE))
+    per_step = cfg.nb_blocks * (5 + cfg.n_streams) + 1
+
+    def counted(fn):
+        n = nk.KERNEL.launches
+        raw = fn()
+        torch.cuda.synchronize()
+        return raw, nk.KERNEL.launches - n
+    eager, eager_n = counted(lambda: eager_twin(dec).beam_batch_raw(db))
+    for _ in range(2):
+        dec.beam_batch_raw(db)
+    graphed, graphed_n = counted(lambda: dec.beam_batch_raw(db))
+    same = int(eager.n_steps) == int(graphed.n_steps) and all(
+        torch.equal(a, b) for a, b in zip(
+            (eager.comp_scores, eager.comp_buf, eager.comp_len),
+            (graphed.comp_scores, graphed.comp_buf, graphed.comp_len)))
+    steps = int(graphed.n_steps)
+    out = dict(steps=steps, per_step=per_step, eager_launches=eager_n,
+               graphed_launches=graphed_n, nbest_bitwise=same,
+               graph_runs=dec.graphs.batches)
+    out["ok"] = (same and eager_n == per_step * int(eager.n_steps)
+                 and graphed_n == per_step * steps)
+    del dec, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def norm_phase(torch, nk, corpus: dict) -> dict:
+    """``[norm-kernel]``: the kernel against the plain chain at the
+    decode paths' rows (a served stream's 1 to the AE width's 1,024) in
+    bf16 and f32 at D 512 and 1,024, at the edges of its gate (D 128,
+    384 and 4,096), without bias and without delta, with bf16 norm
+    parameters; timed at 1, 32, 160 and 1,024 rows; then
+    :func:`norm_graphed_beam`."""
+    gen = torch.Generator().manual_seed(20)
+    rows = []
+    for dtype_name in ("bfloat16", "float32"):
+        for D in (512, 1024):
+            for R in NORM_ROWS:
+                rows.append(norm_case(torch, nk, gen, dtype_name, R, D,
+                                      timed_case=D == 512
+                                      and R in NORM_TIMED_ROWS))
+        for D in (128, 384, 4096):
+            rows.append(norm_case(torch, nk, gen, dtype_name, 7, D))
+        for parts in ("delta", "none"):
+            rows.append(norm_case(torch, nk, gen, dtype_name, 160, 512,
+                                  parts))
+    rows.append(norm_case(torch, nk, gen, "bfloat16", 160, 512,
+                          param_dtype="bfloat16"))
+    beam = norm_graphed_beam(torch, nk, corpus)
+    return dict(rows=rows, beam=beam,
+                ok=all(r["ok"] for r in rows) and beam["ok"])
 
 
 # -- [graphs]: each decode batch as one device program ------------------------
@@ -1324,18 +1554,65 @@ def generate_argv(corpus: dict, prefix: str, out: str, *extra):
             "--use-pallas-ffn", "1", "--output", out, *extra]
 
 
+def kernel_ops() -> dict:
+    """The hand-written kernels' wrapper modules, by kernel name."""
+    from mtn_tpu_torch.ops import attention_kernel, ffn_kernel, norm_kernel
+    return {"attention": attention_kernel, "ffn": ffn_kernel,
+            "norm": norm_kernel}
+
+
+def zero_launches() -> None:
+    for m in kernel_ops().values():
+        m.KERNEL.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every hand-written kernel's launches since :func:`zero_launches`."""
+    return {name: m.KERNEL.launches for name, m in kernel_ops().items()}
+
+
+def norm_label(shapes) -> str:
+    """A norm launch's rows and width, and whether it adds a delta."""
+    *lead, D = shapes[0]
+    return f"norm R{math.prod(lead)} D{D}" + (
+        "" if shapes[1] is None else " add")
+
+
+def all_launched(launches: dict, train: bool = False) -> bool:
+    """Every hand-written kernel launched on a decode path; on a train
+    path the attention and FFN kernels, and the norm kernel never (a
+    train step's sublayers take the plain chain under autograd)."""
+    if train:
+        return launches["norm"] == 0 and launches["attention"] > 0 \
+            and launches["ffn"] > 0
+    return min(launches.values()) > 0
+
+
+def on_model_shard(label: str) -> bool:
+    """A launch label of a ``--mesh-model 2`` rank on its shard: the
+    attention on 4 of 8 heads, the FFN on d_ff 1,024 with an f32 output;
+    the norm on the whole residual stream, which every rank holds."""
+    if label.startswith("attention"):
+        return " H4 " in label
+    if label.startswith("norm"):
+        return label.split()[2] == f"D{FLAGSHIP['d_model']}"
+    return " F1024" in label and "f32 out" in label
+
+
 def run_path(torch, ak, fk, fn):
-    """``fn()`` with both kernels' counts set to 0 just before it; its
+    """``fn()`` with every kernel's count set to 0 just before it; its
     result, the counts just after it, and the calls per kernel shape."""
     box = []
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     seen = record_launches(ak, fk, lambda: box.append(fn()))
     torch.cuda.synchronize()
-    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    launches = launch_counts()
     calls = {}
     for (name, *shapes), rec in seen.items():
         if name == "ffn":
             label = f"ffn N{shapes[0][0]}"
+        elif name == "norm":
+            label = norm_label(shapes)
         else:
             B, _, Lq, _ = shapes[0]
             label = f"attention B{B} Lq{Lq} Lk{shapes[1][2]}"
@@ -1470,11 +1747,11 @@ def stream_run(torch, ak, fk, dec, db, style: str, fold: int) -> dict:
     kernels' launches (their counts set to 0 just before it and read
     just after) and the program runs of its stream set over it."""
     before = {k: ps.replays for k, ps in stream_sets(dec).items()}
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     ys = [y.tolist() for y in dec.stream_tokens(db, style, fold)]
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    launches = launch_counts()
     runs = sum(ps.replays - before.get(k, 0)
                for k, ps in stream_sets(dec).items())
     return dict(yields=ys, steps=len(ys), host_ms_per_step=ms / len(ys),
@@ -1911,7 +2188,7 @@ def serve_phase(torch, ak, fk, corpus: dict, quant: str = "") -> dict:
     session = serve_session(corpus, quant=quant)
     warmup_s = session.warmup(stream=True)
     bodies = serve_bodies(corpus, SERVE_REQUESTS)
-    launches, calls = {"attention": 0, "ffn": 0}, {}
+    launches, calls = {name: 0 for name in kernel_ops()}, {}
 
     def counted(fn, sink=None):
         result, n, by_shape = run_path(torch, ak, fk, fn)
@@ -2183,7 +2460,7 @@ def serve_follower(torch, ak, fk, session) -> dict:
     def run(op, args, sink=None):
         if n[0] == SERVE_PAR_WARMUP_COMMANDS:
             torch.cuda.synchronize()
-            ak.KERNEL.launches = fk.KERNEL.launches = 0
+            zero_launches()
             out["t0"] = time.perf_counter()
             prof.start()
         result = orig(op, args, sink)
@@ -2206,8 +2483,7 @@ def serve_follower(torch, ak, fk, session) -> dict:
         prof.stop()
         del out["t0"]
     torch.cuda.synchronize()
-    out["count"] = dict(launches={"attention": ak.KERNEL.launches,
-                                  "ffn": fk.KERNEL.launches},
+    out["count"] = dict(launches=launch_counts(),
                         shapes=launch_shapes(seen))
     return out
 
@@ -2319,11 +2595,8 @@ def serve_parallel_phase(torch, corpus: dict, root: str,
                                 PAR_MARGIN["float32"])
             row["nbest_f32"] = f32
             good &= f32["ok"] and f32["max_score_diff"] <= PAR_F32_TOL
-            # every launch on the rank's shard: 4 of 8 heads, d_ff 1024
             row["shard_shapes_only"] = all(
-                (" H4 " in k) if k.startswith("attention") else
-                (" F1024" in k and "f32 out" in k)
-                for shapes in row["shapes"] for k in shapes)
+                on_model_shard(k) for shapes in row["shapes"] for k in shapes)
             good &= row["shard_shapes_only"]
         row["ok"] = bool(good)
         res[mesh] = row
@@ -2519,11 +2792,11 @@ def aot_stream(torch, ak, fk, session, live, req) -> dict:
         return words, (time.perf_counter() - t0) * 1e3
     ps = session.sets[("stream_greedy", 1)]
     runs = ps.replays
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     got = list(session.stream(req))
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    launches = launch_counts()
     runs = ps.replays - runs
     eager, eager_ms = live_words(eager_twin(live.decoder))
     graphed = [live_words(live.decoder) for _ in range(3)]
@@ -3022,22 +3295,21 @@ class StepLaunches:
     """Kernel launches made inside ``Trainer.train_step`` (the method is
     wrapped for the duration of a run), beside the run's totals."""
 
-    def __init__(self, ak, fk):
-        self.ak, self.fk = ak, fk
-        self.counts = {"attention": 0, "ffn": 0}
+    def __init__(self):
+        self.counts = {name: 0 for name in kernel_ops()}
 
     def __enter__(self):
         from mtn_tpu_torch.train.trainer import Trainer
         self.orig = orig = Trainer.train_step
-        ak, fk, counts = self.ak, self.fk, self.counts
+        counts = self.counts
 
         def train_step(tr, *args, **kwargs):
-            before = ak.KERNEL.launches, fk.KERNEL.launches
+            before = launch_counts()
             try:
                 return orig(tr, *args, **kwargs)
             finally:
-                counts["attention"] += ak.KERNEL.launches - before[0]
-                counts["ffn"] += fk.KERNEL.launches - before[1]
+                for name, n in launch_counts().items():
+                    counts[name] += n - before[name]
         Trainer.train_step = train_step
         return self
 
@@ -3060,14 +3332,14 @@ def train_run(torch, ak, fk, corpus: dict, root: str, name: str,
     from mtn_tpu_torch.cli import train as train_cli
     from mtn_tpu_torch.train.graphs import StepGraphs
     prefix = os.path.join(root, name, "mtn")
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     t0 = time.time()
-    with StepLaunches(ak, fk) as steps, \
+    with StepLaunches() as steps, \
             graph_runners(StepGraphs) as runners:
         rc = train_cli.main(train_argv(corpus, prefix, *extra))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    launches = launch_counts()
     if rc != 0:
         raise AssertionError(f"train run {name}: exit code {rc}")
     return train_row(name, prefix, wall, launches, steps.counts,
@@ -3221,7 +3493,7 @@ def run_torch_phase(torch, ak, fk, generate, corpus: dict,
     epochs = [m.groups() for m in map(TRAIN_LAUNCHES.search, lines) if m]
     train_launches, valid_launches = ({
         k: sum(json.loads(e[i])[k] for e in epochs)
-        for k in ("attention", "ffn")} for i in (0, 1))
+        for k in kernel_ops()} for i in (0, 1))
     programs = [m.groups() for m in map(STEP_PROGRAMS.search, lines) if m]
     decoded = [json.loads(m.group(1))
                for m in map(DECODE_LAUNCHES.search, lines) if m]
@@ -3236,10 +3508,11 @@ def run_torch_phase(torch, ak, fk, generate, corpus: dict,
                                  map(int, programs[-1]))))
     result = os.path.join(expdir, RUN_TORCH_RESULT + ".json")
     here = os.path.join(root, "run_torch_here.json")
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    from mtn_tpu_torch.cli.common import kernel_launches
+    zero_launches()
     grc = generate.main(stage3_argv(corpus, expdir, here))
     torch.cuda.synchronize()
-    launches = {"attention": ak.KERNEL.launches, "ffn": fk.KERNEL.launches}
+    launches = kernel_launches()   # the keys of the stage's log line
     with open(result, "rb") as f, open(here, "rb") as g:
         same = f.read() == g.read()
     answers = answers_of(result)
@@ -3307,7 +3580,7 @@ def train_reference(torch, ak, fk, corpus: dict, prefix: str) -> dict:
         cfg.dropout = cfg.attn_dropout = 0.0
         cfg.remat = False
         cfg.use_pallas_attention = cfg.use_pallas_ffn = kernels
-        ak.KERNEL.launches = fk.KERNEL.launches = 0
+        zero_launches()
         tr = Trainer(cfg, TrainConfig(warmup_steps=WARMUP), dev)
         tr.state_from(sd)
         loss, _, grads = tr.loss_and_grads(device_batch(hb, dev), (0, 0))
@@ -3341,16 +3614,18 @@ def train_reference(torch, ak, fk, corpus: dict, prefix: str) -> dict:
 
 
 def record_launches(ak, fk, fn):
-    """Run ``fn`` with each kernel's launch recorded: per distinct set of
-    argument shapes, a copy of the first call's arguments and the number
-    of calls. A launch inside a CUDA graph is recorded at each replay of
-    the graph (``_build.REPLAY_LISTENERS``), with the argument shapes (and
-    the values of the other arguments) in place of the arguments; a
-    capture itself launches nothing and is not recorded."""
+    """Run ``fn`` with the hand-written kernels' launches recorded: per
+    kernel and distinct set of argument shapes, a copy of the first
+    call's arguments and the number of calls. A launch inside a CUDA
+    graph is recorded at each replay of the graph
+    (``_build.REPLAY_LISTENERS``), with the argument shapes (and the
+    values of the other arguments) in place of the arguments; a capture
+    itself launches nothing and is not recorded."""
     from mtn_tpu_torch.ops import _build
     import torch
     seen = {}
-    origs = (ak.launch, fk.launch)
+    mods = kernel_ops()
+    origs = {name: m.launch for name, m in mods.items()}
 
     def record(key, args, n):
         if key not in seen:
@@ -3372,14 +3647,15 @@ def record_launches(ak, fk, fn):
             record((kernel.name,) + tuple(
                 s if isinstance(s, tuple) else None for s in shapes),
                 list(shapes), n)
-    ak.launch = recorder("attention", origs[0])
-    fk.launch = recorder("ffn", origs[1])
+    for name, m in mods.items():
+        m.launch = recorder(name, origs[name])
     _build.REPLAY_LISTENERS.append(replayed)
     try:
         fn()
         _build.settle()   # the graph launches still on the device
     finally:
-        ak.launch, fk.launch = origs
+        for name, m in mods.items():
+            m.launch = origs[name]
         _build.REPLAY_LISTENERS.remove(replayed)
     return seen
 
@@ -3411,7 +3687,7 @@ def profile_step(torch, ak, fk, tr, state, db) -> dict:
     busy time, launches, the hand-written kernels' calls (counted, and
     seen by the profiler) and the top host ops by self time."""
     from torch.profiler import ProfilerActivity, profile
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tr.train_step(state, db, 0)
@@ -4023,6 +4299,8 @@ def launch_shapes(seen) -> dict:
         if name == "attention":
             B, H, Lq, _ = shapes[0]
             label = f"attention B{B} H{H} Lq{Lq} Lk{shapes[1][2]}"
+        elif name == "norm":
+            label = norm_label(shapes)
         else:
             label = f"ffn N{shapes[0][0]} F{shapes[1][1]}" + (
                 " f32 out" if rec["args"][5] else "")
@@ -4137,14 +4415,13 @@ def counted_run(torch, ak, fk, fn):
     """``fn()`` with both kernels' counts set to 0 just before it: its
     result, and its seconds, launches by kernel and by shape."""
     box = []
-    ak.KERNEL.launches = fk.KERNEL.launches = 0
+    zero_launches()
     t0 = time.time()
     seen = record_launches(ak, fk, lambda: box.append(fn()))
     torch.cuda.synchronize()
     return box[0], dict(
         seconds=time.time() - t0,
-        launches={"attention": ak.KERNEL.launches,
-                  "ffn": fk.KERNEL.launches},
+        launches=launch_counts(),
         shapes=launch_shapes(seen))
 
 
@@ -4429,7 +4706,7 @@ def parallel_phase(torch, ak, fk, corpus: dict, root: str,
             and row["nbest_equal_across_ranks"]
         for r in ranks:
             for part in ("train", "decode"):
-                good &= min(r[part]["launches"].values()) > 0
+                good &= all_launched(r[part]["launches"], part == "train")
         if mesh == "2x1":
             good &= row["nbest"]["ok"]
             # every rank draws the whole batch's dropout masks and keeps
@@ -4487,12 +4764,9 @@ def parallel_phase(torch, ak, fk, corpus: dict, root: str,
             row["nbest_f32"] = f32
             row["decode_f32"] = [r["decode_f32"] for r in ranks]
             good &= f32["ok"] and f32["max_score_diff"] <= PAR_F32_TOL
-            # every launch on a rank's shard: 4 of 8 heads, d_ff 1024
             labels = [k for r in ranks for part in ("train", "decode")
                       for k in r[part]["shapes"]]
-            row["shard_shapes_only"] = all(
-                (" H4 " in k) if k.startswith("attention") else
-                (" F1024" in k and "f32 out" in k) for k in labels)
+            row["shard_shapes_only"] = all(map(on_model_shard, labels))
             good &= row["shard_shapes_only"]
         row["ok"] = bool(good)
         res[mesh] = row
@@ -4513,6 +4787,7 @@ def main() -> int:
         from mtn_tpu_torch.ops import _build
         from mtn_tpu_torch.ops import attention_kernel as ak
         from mtn_tpu_torch.ops import ffn_kernel as fk
+        from mtn_tpu_torch.ops import norm_kernel as nk
         from mtn_tpu_torch.cli import generate
     except ImportError as e:
         return fail(f"mtn_tpu_torch is not importable (run from the repo "
@@ -4529,8 +4804,8 @@ def main() -> int:
     t_phase = t0 = time.time()
     from mtn_tpu_torch.data import native_loader
     from mtn_tpu_torch.ops import graph_loop
-    logs = _build.build_all([ak.KERNEL, fk.KERNEL, graph_loop.LIBRARY,
-                             native_loader.LIBRARY])
+    logs = _build.build_all([ak.KERNEL, fk.KERNEL, nk.KERNEL,
+                             graph_loop.LIBRARY, native_loader.LIBRARY])
     print(f"[build] {time.time() - t0:.1f}s")
     for log in logs:
         for line in log.splitlines():
@@ -4580,15 +4855,13 @@ def main() -> int:
         fea_path = corpus["fea_path"]
         out = os.path.join(root, "result.json")
         stats_path = os.path.join(root, "stats.json")
-        ak.KERNEL.launches = 0
-        fk.KERNEL.launches = 0
+        zero_launches()
         t0 = time.time()
         with graph_runners() as runners:
             rc = generate.main(generate_argv(corpus, prefix, out, *BEAM_FLAGS,
                                              "--stats-output", stats_path))
             torch.cuda.synchronize()
-        launches = {"attention": ak.KERNEL.launches,
-                    "ffn": fk.KERNEL.launches}
+        launches = launch_counts()
         wall = time.time() - t0
         if rc != 0:
             return fail(f"generate exited {rc}")
@@ -4604,18 +4877,23 @@ def main() -> int:
         # steps a chunk
         from mtn_tpu_torch.decode import graphs
         k, layers = graphs.CHUNK, FLAGSHIP["nb_blocks"]
+        # a step's sublayer boundaries: self, his, cap, src, one a video
+        # stream, FFN; and layer 0's input
+        per_step = layers * (5 + len(FLAGSHIP["ft_sizes"])) + 1
         steps = round(stats["mean_exit_step"] * stats["batches"])
         counts = runner_counts(runners)
         print(f"[main] launches {json.dumps(launches)}; main() wall "
               f"{wall:.2f}s incl. loading; decoder {json.dumps(counts)}; "
               f"graphed with k = {k}: FFN launches = {layers} x (sum over "
               f"batches of n_steps, rounded up to k on graphed batches, "
-              f"plus a warm-up step a capture), attention 24 x (batches "
-              f"+ a warm-up prefix a capture)")
+              f"plus a warm-up step a capture), norm {per_step} x the "
+              f"same, attention 24 x (batches + a warm-up prefix a "
+              f"capture)")
         captures = counts["captures"]
         if k == 1 and launches != {
                 "attention": 24 * (stats["batches"] + captures),
-                "ffn": layers * (steps + captures)}:
+                "ffn": layers * (steps + captures),
+                "norm": per_step * (steps + captures)}:
             return fail(f"[main] launches {launches} are not those of "
                         f"{stats['batches']} batches of {steps} steps in "
                         f"all with {captures} captures")
@@ -4635,7 +4913,7 @@ def main() -> int:
             return fail("[main]: the result JSON or the n-best log with "
                         f"{IN_FLIGHT} batches in flight differs from one "
                         "batch at a time")
-        ak.KERNEL.launches = fk.KERNEL.launches = 0
+        zero_launches()
         diff = reference_check(torch, prefix, test_set, fea_path)
         print(f"[reference] flagship f32, card (kernels) vs CPU (plain): "
               f"max |d logp| = {diff:.3e} (tol 1e-3)")
@@ -4645,6 +4923,21 @@ def main() -> int:
         print(f"[profile] one warm turn batch (32 turns, beam 5, bf16): "
               f"{json.dumps(prof)}")
         phase_s["main"] = time.time() - t_phase
+
+        # the sublayer boundary's kernel against the plain chain
+        t_phase = time.time()
+        norm = norm_phase(torch, nk, corpus)
+        for r in norm["rows"]:
+            print("[norm-kernel] " + json.dumps(r))
+        print(f"[norm-kernel] beam {json.dumps(norm['beam'])}; {card}")
+        if not norm["ok"]:
+            return fail("norm-kernel: x_new differs from the plain chain, "
+                        "normed is further from the f64 formula than the "
+                        "plain chain's by more than one last place (in "
+                        "bf16: from the plain chain's, or too few outputs "
+                        "bitwise), or the graphed beam's n-bests or "
+                        "launches are not the eager's")
+        phase_s["norm-kernel"] = time.time() - t_phase
 
         # each decode batch as captured programs, against the eager loop
         t_phase = time.time()
@@ -4734,9 +5027,11 @@ def main() -> int:
         if not all(int8[q]["filled"] for q in INT8_MODES):
             return fail("int8: not every undisclosed answer was replaced")
         if not all(int8[q]["launches"]["attention"] > 0
+                   and int8[q]["launches"]["norm"] > 0
                    and int8[q]["launches"]["ffn"] == 0 for q in INT8_MODES):
-            return fail("int8: attention must launch and the FFN kernel "
-                        f"never: {[int8[q]['launches'] for q in INT8_MODES]}")
+            return fail("int8: attention and norm must launch and the FFN "
+                        "kernel never: "
+                        f"{[int8[q]['launches'] for q in INT8_MODES]}")
         if not int8["reference"]["max_abs_diff"] <= INT8_REF_TOL:
             return fail("int8: the card disagrees with the CPU reference")
         if not int8["transfer_bitwise"]:
@@ -4755,9 +5050,9 @@ def main() -> int:
             return fail("serve: a kernel never launched for the bf16 "
                         f"session: {serve_launches}")
         q8 = served["int8-fp-head"]["launches"]
-        if q8["attention"] <= 0 or q8["ffn"] != 0:
-            return fail("serve: under int8 attention must launch and the "
-                        f"FFN kernel never: {q8}")
+        if q8["attention"] <= 0 or q8["norm"] <= 0 or q8["ffn"] != 0:
+            return fail("serve: under int8 attention and norm must launch "
+                        f"and the FFN kernel never: {q8}")
         phase_s["serve"] = time.time() - t_phase
         t_phase = time.time()
 
@@ -4832,9 +5127,9 @@ def main() -> int:
                           "8", "--dropout", "0", "--attn-dropout", "0")
         print(f"[train] {json.dumps(run_b)}")
         train_launches = run_b["train_step_launches"]
-        if min(train_launches.values()) <= 0:
+        if not all_launched(train_launches, train=True):
             return fail("run (b): a kernel never launched inside a train "
-                        f"step: {train_launches}")
+                        f"step, or the norm kernel did: {train_launches}")
         out = os.path.join(root, "trained.json")
         rc = generate.main(generate_argv(corpus, run_a["prefix"], out,
                                          *BEAM_FLAGS))
@@ -4897,8 +5192,9 @@ def main() -> int:
         ("attention", pick("attention", [32, 4, 32, 64, 64])),
         ("ffn", pick("ffn", [160, 512, 1024], f32_out=True)),
     ]
-    kernels = [dict(name=name, route=route, source=src, replaces=rep,
-                    launches=launches[name],
+    def path_launches(name):
+        """The kernel's launches on each path, from that path's run."""
+        return dict(launches=launches[name],
                     sample_launches=sample["launches"][name],
                     rank_launches=ranked["launches"][name],
                     serve_launches=serve_launches[name],
@@ -4912,7 +5208,9 @@ def main() -> int:
                                       for q in INT8_MODES),
                     train_launches=train_launches[name],
                     run_torch_launches=ran["stage3"]["launches"][name],
-                    batched_ae_launches=batched["launches"][name],
+                    batched_ae_launches=batched["launches"][name])
+    kernels = [dict(name=name, route=route, source=src, replaces=rep,
+                    **path_launches(name),
                     max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4931,6 +5229,16 @@ def main() -> int:
                      plain_device_us=r["plain_device_us"],
                      library_device_us=r["library_device_us"])
                 for (name, r), k in zip(tp_heads, kernels)]
+    r = next(r for r in norm["rows"] if r["dtype"] == "bfloat16"
+             and r["shape"] == [160, 512] and "device_us" in r)
+    kernels.append(dict(
+        name="norm", route="cuda", source="mtn_tpu_torch/csrc/norm.cu",
+        replaces="mtn_tpu_torch/models/layers.py RefLayerNorm and the "
+        "sublayer's bias and residual adds", shape=r["shape"],
+        **path_launches("norm"), normed_max_ulps=r["normed_max_ulps"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], device_us=r["device_us"],
+        plain_device_us=r["plain_device_us"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

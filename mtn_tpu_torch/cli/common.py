@@ -31,9 +31,10 @@ def print_args(args: argparse.Namespace):
 def kernel_launches() -> dict:
     """The hand-written kernels' launches so far in this process, by
     kernel (0 on the CPU, where their plain versions run)."""
-    from mtn_tpu_torch.ops import attention_kernel, ffn_kernel
+    from mtn_tpu_torch.ops import attention_kernel, ffn_kernel, norm_kernel
     return {"attention": attention_kernel.KERNEL.launches,
-            "ffn": ffn_kernel.KERNEL.launches}
+            "ffn": ffn_kernel.KERNEL.launches,
+            "norm": norm_kernel.KERNEL.launches}
 
 
 def add_device_args(parser: argparse.ArgumentParser):

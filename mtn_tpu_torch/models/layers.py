@@ -48,6 +48,7 @@ from torch import nn
 from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.ffn_kernel import fused_ffn
 from mtn_tpu_torch.ops.matmul import matmul_f32
+from mtn_tpu_torch.ops.norm_kernel import add_norm, layer_norm
 from mtn_tpu_torch.parallel.collectives import (Axis, copy_to_model,
                                                 gather_last,
                                                 reduce_from_model,
@@ -74,13 +75,7 @@ class RefLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        d = x.shape[-1]
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mean).sum(dim=-1, keepdim=True) / (d - 1)
-        y = self.scale * (xf - mean) / (torch.sqrt(var) + self.eps) \
-            + self.bias
-        return y.to(x.dtype)
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 def row_product(x: torch.Tensor, kernel: torch.Tensor, axis: Axis,
@@ -213,11 +208,18 @@ class ParamLinear(nn.Module):
         return torch.matmul(x, kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, bias = self.unbiased(x)
+        return y + bias
+
+    def unbiased(self, x: torch.Tensor):
+        """``(product, bias)`` with ``forward(x) == product + bias``: the
+        bias is added last in every mode (after the row-parallel sum and
+        the int8 scale), so a caller may add it (:func:`add_norm`)."""
         x = self.prepare(x)
         if self.is_int8:
             y = self.product(x, self.kernel.to(self.dtype))
-            return y * self.kernel_scale.to(self.dtype) + self.bias
-        return self.product(x, self.kernel) + self.bias
+            return y * self.kernel_scale.to(self.dtype), self.bias
+        return self.product(x, self.kernel), self.bias
 
 
 class MultiHeadAttention(nn.Module):
@@ -254,11 +256,11 @@ class MultiHeadAttention(nn.Module):
         B, H, L, d_k = x.shape
         return x.transpose(1, 2).reshape(B, L, H * d_k)
 
-    def _attend(self, q, k, v, mask, rate: float) -> torch.Tensor:
-        out = multi_head_attention(q, k, v, mask, dropout_rate=rate,
-                                   use_kernel=self.use_kernel,
-                                   heads=self.w_q.axis, data=self.data_axis)
-        return self.w_o(self._merge(out))
+    def _heads(self, q, k, v, mask, rate: float) -> torch.Tensor:
+        """The heads' attention, merged: w_o's input."""
+        return self._merge(multi_head_attention(
+            q, k, v, mask, dropout_rate=rate, use_kernel=self.use_kernel,
+            heads=self.w_q.axis, data=self.data_axis))
 
     def project_kv(self, kv_in: torch.Tensor):
         """(B, Lk, D) -> cached ((B,H,Lk,Dk), (B,H,Lk,Dk))."""
@@ -278,13 +280,21 @@ class MultiHeadAttention(nn.Module):
         q, k, v = torch.split(qkv, self.w_q.kernel.shape[1], dim=-1)
         return self._split(q), self._split(k), self._split(v)
 
-    def attend_pre_q(self, q, k, v, mask) -> torch.Tensor:
-        """Attention with q already projected and head-split (decode)."""
-        return self._attend(q, k, v, mask, 0.0)
+    def attend_step(self, q_in, k, v, mask, q=None):
+        """A decode step's attention of ``q_in`` over cached k/v, or of
+        ``q`` already projected and head-split (``fused_qkv``; no
+        dropout): w_o's ``(product, bias)`` (:meth:`ParamLinear.
+        unbiased`)."""
+        rate = 0.0
+        if q is None:
+            rate = self.attn_dropout if self.training else 0.0
+            q = self._split(self.w_q(q_in))
+        return self.w_o.unbiased(self._heads(q, k, v, mask, rate))
 
     def attend_with_kv(self, q_in, k, v, mask) -> torch.Tensor:
         rate = self.attn_dropout if self.training else 0.0
-        return self._attend(self._split(self.w_q(q_in)), k, v, mask, rate)
+        return self.w_o(self._heads(self._split(self.w_q(q_in)), k, v, mask,
+                                    rate))
 
     def forward(self, q_in, k_in, v_in, mask=None) -> torch.Tensor:
         if mask is not None:
@@ -352,8 +362,18 @@ class Sublayer(nn.Module):
         return x + sharded_dropout(f(self.norm(x)), self.dropout,
                                    self.training, data=self.data_axis)
 
-    def normed(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x)
+    def add_norm(self, x: torch.Tensor, delta: torch.Tensor,
+                 bias: Optional[torch.Tensor], norm: RefLayerNorm):
+        """:meth:`forward`'s residual for a sublayer output ``delta +
+        bias`` (``bias`` may be None), then ``norm`` of the sum, the
+        next sublayer's input: ``(x_new, norm(x_new))`` in one
+        :func:`add_norm` call."""
+        if self.training and self.dropout:
+            if bias is not None:
+                delta, bias = delta + bias, None
+            delta = sharded_dropout(delta, self.dropout, True,
+                                    data=self.data_axis)
+        return add_norm(x, delta, bias, norm.scale, norm.bias, norm.eps)
 
 
 class Generator(nn.Module):

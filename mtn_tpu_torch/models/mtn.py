@@ -11,7 +11,10 @@ Same architecture, parameter names and config branches as the JAX model:
   x→AE attn), and the final FFN, all as pre-norm residual sublayers;
 - ``init_decode_state`` runs the AE chain and every cross-attention K/V
   projection once per turn batch; ``decode_step`` advances one token with
-  a self-attention KV cache, updated in place.
+  a self-attention KV cache, updated in place, each sublayer boundary of
+  the step one ``add_norm`` (the sublayer's output added to the residual
+  stream and the next sublayer's LayerNorm of it: one kernel on the
+  card where no operand requires grad).
 
 Training mode follows ``self.training`` (JAX's ``deterministic=False``):
 dropout after each positional encoding, on each sublayer's output, inside
@@ -48,6 +51,7 @@ from mtn_tpu_torch.models.layers import (FeedForward, Generator,
                                          row_product, torch_dtype)
 from mtn_tpu_torch.ops.attention import multi_head_attention
 from mtn_tpu_torch.ops.masks import attend_first_if_empty
+from mtn_tpu_torch.ops.norm_kernel import add_norm
 from mtn_tpu_torch.parallel.collectives import (active_draws, drawing,
                                                 gather_last, sharded_dropout)
 
@@ -331,37 +335,38 @@ class DecoderLayer(nn.Module):
         return cache, tuple(out_ae)
 
     # -- single-token decode step ------------------------------------------
-    def step(self, x, cache: LayerDecodeCache, masks: SourceMasks, ae_mask,
-             self_k, self_v, pos: Position, self_q=None):
-        """x: (B, 1, D). ``self_k/v``: (B, H, maxlen, Dk) caches already
-        holding this step's K/V at ``pos``. ``self_q``: the current
-        position's head-split q from ``fused_self_qkv``, if used."""
+    def step(self, x, y, cache: LayerDecodeCache, masks: SourceMasks,
+             ae_mask, self_k, self_v, pos: Position, norm_out: RefLayerNorm,
+             self_q=None):
+        """x: (B, 1, D), the residual stream; y: its self-attention
+        sublayer's normed input. ``self_k/v``: (B, H, maxlen, Dk) caches
+        already holding this step's K/V at ``pos``. ``self_q``: the
+        current position's head-split q from ``fused_self_qkv``, if used.
+        Each sublayer boundary is one ``add_norm``: the sublayer's output
+        into the residual stream and the next sublayer's norm of it, the
+        last one ``norm_out`` (the next layer's self-attention norm, or
+        the decoder's final norm). Returns (x, norm_out(x))."""
         maxlen = self_k.shape[2]
         valid = (torch.arange(maxlen, device=x.device)
                  <= pos)[None, None, None, :]
-        if self_q is not None:
-            x = self.sl_self(x, lambda y: self.self_attn.attend_pre_q(
-                self_q, self_k, self_v, valid))
-        else:
-            x = self.sl_self(x, lambda y: self.self_attn.attend_with_kv(
-                y, self_k, self_v, valid))
-        x = self.sl_his(x, lambda y: self.his_attn.attend_with_kv(
-            y, *cache.his_kv, masks.his[:, None]))
-        cap = lambda x: self.sl_cap(x, lambda y: self.cap_attn.attend_with_kv(
-            y, *cache.cap_kv, masks.cap[:, None]))
-        src = lambda x: self.sl_src(x, lambda y: self.src_attn.attend_with_kv(
-            y, *cache.src_kv, masks.query[:, None]))
-        if self.cfg.auto_encoder_ft in ("caption", "summary"):
-            x = cap(src(x))
-        else:
-            x = src(cap(x))
-        for i in range(self.cfg.n_streams):
-            x = self.sl_x_ae[i](x, lambda y, i=i: self.ae_attn[i].attend_with_kv(
-                y, *cache.ae_kv[i], ae_mask[:, None]))
-        return self.sl_ff(x, self.ff)
 
-    def self_norm_in(self, x):
-        return self.sl_self.normed(x)
+        def cross(attn, kv, mask):
+            return lambda y: attn.attend_step(y, *kv, mask[:, None])
+        his = (self.sl_his, cross(self.his_attn, cache.his_kv, masks.his))
+        cap = (self.sl_cap, cross(self.cap_attn, cache.cap_kv, masks.cap))
+        src = (self.sl_src, cross(self.src_attn, cache.src_kv, masks.query))
+        chain = [(self.sl_self, lambda y: self.self_attn.attend_step(
+            y, self_k, self_v, valid, q=self_q)), his]
+        chain += [src, cap] if self.cfg.auto_encoder_ft in (
+            "caption", "summary") else [cap, src]
+        chain += [(self.sl_x_ae[i], cross(self.ae_attn[i], cache.ae_kv[i],
+                                          ae_mask))
+                  for i in range(self.cfg.n_streams)]
+        chain.append((self.sl_ff, lambda y: (self.ff(y), None)))
+        norms = [sub.norm for sub, _ in chain[1:]] + [norm_out]
+        for (sub, f), norm in zip(chain, norms):
+            x, y = sub.add_norm(x, *f(y), norm)
+        return x, y
 
 
 class Decoder(nn.Module):
@@ -408,10 +413,15 @@ class Decoder(nn.Module):
         """One decode position through all layers. ``self_kv``: per layer
         (k, v) caches (B, H, maxlen, Dk), written in place at ``pos`` (an
         ``int``, or a 0-d int64 tensor that a traced program takes as an
-        input). Returns (normed x, self_kv)."""
-        for layer, cache, (k_cache, v_cache) in zip(self.layers,
-                                                    state.layers, self_kv):
-            y = layer.self_norm_in(x)
+        input). The residual stream and its next norm go from sublayer
+        boundary to boundary (:meth:`DecoderLayer.step`), each
+        self-attention norm computed once for its K/V and its q. Returns
+        (normed x, self_kv)."""
+        first = self.layers[0].sl_self.norm
+        x, y = add_norm(x, None, None, first.scale, first.bias, first.eps)
+        outs = [layer.sl_self.norm for layer in self.layers[1:]] + [self.norm]
+        for layer, cache, (k_cache, v_cache), norm_out in zip(
+                self.layers, state.layers, self_kv, outs):
             if self.cfg.fused_decode_qkv:
                 q_t, k_t, v_t = layer.self_attn.fused_qkv(y)
             else:
@@ -423,9 +433,9 @@ class Decoder(nn.Module):
             else:
                 k_cache.index_copy_(2, pos.reshape(1), k_t)
                 v_cache.index_copy_(2, pos.reshape(1), v_t)
-            x = layer.step(x, cache, state.masks, state.ae_mask, k_cache,
-                           v_cache, pos, self_q=q_t)
-        return self.norm(x), self_kv
+            x, y = layer.step(x, y, cache, state.masks, state.ae_mask,
+                              k_cache, v_cache, pos, norm_out, self_q=q_t)
+        return y, self_kv
 
 
 class MTN(nn.Module):

@@ -10,10 +10,11 @@ exports the decode once into an artifact directory, and
   (``torch.export.save``), one weights file, the vocabulary and the
   config sidecars. Loading reads nothing else, never opens the
   checkpoint and never constructs ``MTN`` or imports the model code; it
-  needs only the two ops that the programs call, registered by
-  :mod:`mtn_tpu_torch.ops.attention_kernel` and
-  :mod:`mtn_tpu_torch.ops.ffn_kernel`, so on the card an artifact
-  decodes through both hand-written kernels.
+  needs only the three ops that the programs call, registered by
+  :mod:`mtn_tpu_torch.ops.attention_kernel`,
+  :mod:`mtn_tpu_torch.ops.ffn_kernel` and
+  :mod:`mtn_tpu_torch.ops.norm_kernel`, so on the card an artifact
+  decodes through the hand-written kernels.
 - **one device**: the programs are traced for the device they were
   exported on (``meta.json``'s ``device``); a session on another device
   raises.
@@ -85,7 +86,8 @@ import numpy as np
 import torch
 
 # the ops the exported programs call: importing registers them
-from mtn_tpu_torch.ops import attention_kernel, ffn_kernel  # noqa: F401
+from mtn_tpu_torch.ops import (attention_kernel, ffn_kernel,  # noqa: F401
+                               norm_kernel)
 from mtn_tpu_torch.config import DecodeConfig, _to_jsonable, config_from_dict
 from mtn_tpu_torch.data.vocab import vocab_list, words2ids
 from mtn_tpu_torch.decode.graphs import (BeamPrograms, ProgramSet,

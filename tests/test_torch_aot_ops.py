@@ -7,7 +7,9 @@ position, on the CPU (no JAX; a small port model with seeded weights):
   the op still in its graph;
 - an exported prefix program holds exactly as many attention nodes as
   the live gate admits at its shapes, and the step program as many FFN
-  nodes as the live step calls (d_ff 256: inside the FFN gate);
+  nodes as the live step calls (d_ff 256: inside the FFN gate) and as
+  many ``add_norm`` nodes (one a sublayer boundary and one for layer 0's
+  input; none in the prefix);
 - ``decode_step`` at an ``int`` and at a 0-d tensor position, bitwise
   equal at every position (logits and caches).
 """
@@ -22,6 +24,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from mtn_tpu_torch.config import DataConfig, DecodeConfig, ModelConfig
 from mtn_tpu_torch.ops import attention_kernel as ak
 from mtn_tpu_torch.ops import ffn_kernel as fk
+from mtn_tpu_torch.ops import norm_kernel as nk
 from mtn_tpu_torch.serve import Request, ServingSession, encode_requests
 from mtn_tpu_torch.utils.aot import AotSession, export_decode
 from mtn_tpu_torch.weights import (init_params, load_model, save_checkpoint,
@@ -32,6 +35,7 @@ pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATTENTION = torch.ops.mtn_tpu_torch.attention.default
 FFN = torch.ops.mtn_tpu_torch.ffn.default
+ADD_NORM = torch.ops.mtn_tpu_torch.add_norm.default
 KERNELS = {"use_pallas_attention": True, "use_pallas_ffn": True}
 
 
@@ -157,10 +161,12 @@ def test_programs_hold_one_op_node_per_live_call(small, monkeypatch):
 
     attn = _count_calls(monkeypatch, ak, "attention_op")
     ffn = _count_calls(monkeypatch, fk, "ffn_op")
+    norm = _count_calls(monkeypatch, nk, "add_norm_op")
     with torch.no_grad():
         state = live.decoder._decode_state(db)      # the prefix program
     n_attn, n_ffn = len(attn), len(ffn)
     assert n_attn == 4 * 2   # AE self and AE->video, 2 streams, 2 layers
+    assert not norm
     from mtn_tpu_torch.decode.steps import beam_init, beam_step
     dcfg = live.decode_cfg
     with torch.no_grad():
@@ -173,10 +179,12 @@ def test_programs_hold_one_op_node_per_live_call(small, monkeypatch):
     def nodes(name):
         graph = session._program(name).graph
         targets = [n.target for n in graph.nodes if n.op == "call_function"]
-        return targets.count(ATTENTION), targets.count(FFN)
-    assert nodes("decode_b2_prefix.pt2") == (n_attn, n_ffn)
-    assert nodes("decode_b2_step.pt2") == (0, len(ffn) - n_ffn)
+        return (targets.count(ATTENTION), targets.count(FFN),
+                targets.count(ADD_NORM))
+    assert nodes("decode_b2_prefix.pt2") == (n_attn, n_ffn, 0)
+    assert nodes("decode_b2_step.pt2") == (0, len(ffn) - n_ffn, len(norm))
     assert len(ffn) - n_ffn == 2  # the decoder FFN of each layer
+    assert len(norm) == 2 * 7 + 1  # 7 sublayers a layer, and layer 0's input
 
 
 @pytest.mark.parametrize("fused", [False, True])
