@@ -18,7 +18,10 @@ uploads the next batches while the device decodes. In beam mode up to
 in JAX: a graphed batch is one launch that reads nothing on the host, so
 the device decodes the queued batches back to back while the host
 converts the finished ones; greedy and sample batches run one at a time.
-The run logs the hand-written kernels' launches (0 on the CPU). With
+The run logs the hand-written kernels' launches (0 on the CPU). A
+checkpoint whose config names ``architecture: kimi_vl`` decodes the same
+way (Kimi-VL-A3B's language model, :mod:`mtn_tpu_torch.models.kimi_lm`),
+on one device and with full-precision weights. With
 ``--profile-dir DIR`` it records the pass's spans
 (:func:`mtn_tpu_torch.utils.profiling.recording`) and writes them, with
 the device spans on a ``cuda:0`` track, as the Chrome trace
@@ -130,12 +133,15 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
     ``.launch``, ``.fetch``, ``.results``; the decoder's below them) and
     device spans, each batch's under its index, and resolves the device
     spans once every batch has been fetched (the root's last child,
-    ``profiler.resolve``)."""
+    ``profiler.resolve``). A model with routed experts adds its routing
+    counters to the root's (:func:`routing_counters`), read once a
+    pass."""
     rec = profiling.active()
     with profiling.span("decode.pass") as root:
         if rec is not None:
             rec.anchor(device)
             before = _pass_counters()
+            rows = _expert_rows(model)
         result, stats, steps, graphs = _decode_pass(
             root, model, dataset, decode_cfg, data_cfg, vocab, device,
             feature_dtype, ref_data, log_hyps, shardings)
@@ -145,9 +151,33 @@ def generate_responses(model, dataset, decode_cfg, data_cfg, vocab, device,
                        eager_batches=graphs.eager, captures=graphs.captures,
                        evictions=graphs.evictions, exit_steps=steps,
                        **{k: after[k] - before[k] for k in after})
+            if rows is not None:
+                root.count(**routing_counters(_expert_rows(model) - rows,
+                                              model.lm.num_experts_per_tok))
             with profiling.span("profiler.resolve"):
                 rec.resolve()
     return result, stats
+
+
+def _expert_rows(model):
+    """A routed model's (layers, E) rows taken by each expert so far, on
+    the host (None for a model without experts)."""
+    rows = getattr(model, "expert_rows", None)
+    return None if rows is None else rows.to("cpu", copy=True)
+
+
+def routing_counters(rows, top_k: int) -> dict:
+    """A pass's routing counters from its (layers, E) expert rows:
+    ``moe_tokens``, the real tokens dispatched, summed over the MoE
+    layers (each token takes ``top_k`` rows of a layer), and
+    ``moe_expert_rows_max_over_mean``, the busiest expert's rows over the
+    mean expert's, averaged over the layers (1 is even routing)."""
+    total = rows.sum(1).double()
+    if not float(total.sum()):
+        return {"moe_tokens": 0}
+    imbalance = rows.max(1).values.double() / (total / rows.shape[1])
+    return {"moe_tokens": int(total.sum()) // top_k,
+            "moe_expert_rows_max_over_mean": float(imbalance.mean())}
 
 
 def _pass_counters() -> dict:
@@ -309,7 +339,8 @@ def main(argv=None):
     print_args(args)
     device, shardings = init_parallel(args, args.turn_batch)
     import torch
-    from mtn_tpu_torch.config import DecodeConfig, config_from_dict
+    from mtn_tpu_torch.config import (DecodeConfig, config_from_dict,
+                                      require_mtn)
     from mtn_tpu_torch.data.dataset import load
     from mtn_tpu_torch.weights import load_checkpoint, load_conf, load_model
 
@@ -339,6 +370,11 @@ def main(argv=None):
                      undisclosed_only=bool(args.undisclosed_only))
     log.info("#test sample = %d", len(test_data))
 
+    # before the weights load: int8 and meshes run MTN alone
+    if args.weights_quant:
+        require_mtn(model_cfg, "--weights-quant (int8 weights)")
+    if shardings is not None:
+        require_mtn(model_cfg, "a mesh (--multihost, --mesh-*)")
     state_dict, used_epoch = load_checkpoint(prefix, epoch)
     model = load_model(model_cfg, state_dict, device)
     log.info("Restored checkpoint epoch %s on %s", used_epoch, device)

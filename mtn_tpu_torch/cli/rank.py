@@ -170,7 +170,7 @@ def main(argv=None):
     device, shardings = init_parallel(args, args.turn_batch)
     import torch
     from mtn_tpu_torch.cli.generate import _split_model_arg
-    from mtn_tpu_torch.config import config_from_dict
+    from mtn_tpu_torch.config import config_from_dict, require_mtn
     from mtn_tpu_torch.data.dataset import load
     from mtn_tpu_torch.evalmetrics.retrieval import rank_of, retrieval_metrics
     from mtn_tpu_torch.weights import load_checkpoint, load_conf, load_model
@@ -183,6 +183,7 @@ def main(argv=None):
     log.info("Loading model params from %s (epoch=%s)", prefix, epoch)
     vocab, conf = load_conf(prefix)
     model_cfg = config_from_dict("model", conf["model"])
+    require_mtn(model_cfg, "ranking (cli.rank)")
     data_cfg = config_from_dict("data", conf["data"])
     model_cfg.dtype = args.dtype
     model_cfg.use_pallas_attention = bool(args.use_pallas_attention)

@@ -238,6 +238,12 @@ def main(argv=None):
         accum_steps=args.accum_steps, grad_clip=args.grad_clip,
         patience=args.patience)
 
+    conf_path = args.model + ".conf.json"
+    if args.resume and os.path.exists(conf_path):
+        from mtn_tpu_torch.config import (config_from_dict, load_config,
+                                          require_mtn)
+        require_mtn(config_from_dict("model", load_config(conf_path)["model"]),
+                    "training (cli.train --resume)")
     trainer = Trainer(model_cfg, train_cfg, device,
                       nan_checks=bool(args.nan_checks), shardings=shardings)
     primary = is_primary()

@@ -6,6 +6,15 @@ unchanged and one config drives both packages. ``use_pallas_attention``
 and ``use_pallas_ffn`` keep their names: in this package they select the
 hand-written Hopper kernels (``mtn_tpu_torch/csrc``). ``scan_unroll``
 has no meaning in eager PyTorch and is kept for the schema.
+
+``ModelConfig.architecture`` names the model a config builds: ``"mtn"``
+(the default, so every config written before it loads as MTN) or
+``"kimi_vl"``, Kimi-VL-A3B's language model as a video-grounded answer
+decoder (:mod:`mtn_tpu_torch.models.kimi_lm`), whose published keys live
+in ``ModelConfig.lm`` under their ``config.json`` names
+(:class:`LMConfig`). That architecture decodes through
+``cli.generate`` on one device; the other paths refuse it
+(:func:`require_mtn`).
 """
 
 from __future__ import annotations
@@ -13,7 +22,9 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
+
+ARCHITECTURES = ("mtn", "kimi_vl")
 
 
 @dataclass
@@ -44,10 +55,91 @@ class ModelConfig:
     fused_decode_qkv: bool = False
     batched_ae: bool = False      # the S AE chains as one stacked chain
     remat: bool = False           # recompute decoder layers in backward
+    architecture: str = "mtn"     # one of ARCHITECTURES
+    # "kimi_vl": the language model's keys by their config.json names
+    # (LMConfig's fields); ft_sizes are its feature projectors' inputs
+    lm: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def n_streams(self) -> int:
         return len(self.ft_sizes)
+
+
+@dataclass
+class LMConfig:
+    """The language model of ``ModelConfig.architecture == "kimi_vl"``,
+    each key named as in Kimi-VL-A3B-Instruct's ``config.json``
+    (``text_config``, a DeepSeek-V3 decoder); the defaults are its
+    published values. ``projector_hidden_size`` is the feature
+    projectors' inner width (``Linear(ft, p) -> GELU -> Linear(p,
+    hidden_size)``); the published projector reads MoonViT's output,
+    which DSTC7-AVSD does not ship."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    hidden_act: str = "silu"
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    rope_scaling: Optional[dict] = None
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+    projector_hidden_size: int = 2048
+
+    @classmethod
+    def of(cls, cfg: ModelConfig) -> "LMConfig":
+        """The ``lm`` section of ``cfg``; keys this port does not build
+        with (``max_position_embeddings``, ``ep_size``, ...) are kept in
+        the config file and ignored here, and what it cannot build
+        raises."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        lm = cls(**{k: v for k, v in cfg.lm.items() if k in names})
+        fixed = dict(q_lora_rank=None, topk_method="noaux_tc",
+                     scoring_func="sigmoid", hidden_act="silu",
+                     rope_scaling=None, attention_bias=False,
+                     tie_word_embeddings=False, moe_layer_freq=1)
+        for k, v in fixed.items():
+            if getattr(lm, k) != v:
+                raise NotImplementedError(f"lm.{k}={getattr(lm, k)!r}: "
+                                          f"this port builds {v!r} only")
+        if lm.n_group != 1 or lm.topk_group != 1:
+            raise NotImplementedError("lm.n_group / lm.topk_group: "
+                                      "grouped routing is not built")
+        return lm
+
+
+def architecture(cfg) -> str:
+    """The architecture ``cfg`` names; a config without the field (the
+    JAX package's ``ModelConfig``) is MTN's."""
+    return getattr(cfg, "architecture", "mtn")
+
+
+def require_mtn(cfg, what: str) -> None:
+    """Raise for a path that runs MTN alone (training, serving, AOT,
+    meshes, int8, rank) when ``cfg`` names another architecture."""
+    if architecture(cfg) != "mtn":
+        raise NotImplementedError(
+            f"{what} runs the MTN architecture only; {architecture(cfg)!r} "
+            "decodes on one device through mtn_tpu_torch.cli.generate")
 
 
 @dataclass

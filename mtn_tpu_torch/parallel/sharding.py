@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from mtn_tpu_torch.config import require_mtn
 from mtn_tpu_torch.data.batching import HostBatch
 from mtn_tpu_torch.data.feature_cache import BF16Feature, QuantFeature
 from mtn_tpu_torch.parallel.collectives import Axis, all_gather
@@ -165,6 +166,7 @@ class Shardings:
         Call it once, on a model holding full tensors (or none yet: a
         trainer's fresh model, whose state is loaded through the
         layout)."""
+        require_mtn(model.cfg, "a mesh (Shardings.shard_model)")
         if self.data is not None:
             for mod in model.modules():
                 if hasattr(mod, "data_axis"):

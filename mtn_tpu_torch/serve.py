@@ -37,7 +37,7 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mtn_tpu_torch.config import DecodeConfig, config_from_dict
+from mtn_tpu_torch.config import DecodeConfig, config_from_dict, require_mtn
 from mtn_tpu_torch.data.batching import HostBatch, pad_seqs
 from mtn_tpu_torch.data.vocab import BLANK, vocab_list, words2ids
 from mtn_tpu_torch.decode.steps import detokenize
@@ -307,6 +307,7 @@ class ServingSession:
                  device: str = "cuda"):
         from mtn_tpu_torch.cli.common import resolve_device
         from mtn_tpu_torch.train.batch import to_device_fn
+        require_mtn(model_cfg, "serving (ServingSession)")
         if weights_quant not in ("", "int8", "int8-fp-head"):
             raise ValueError(f"weights_quant {weights_quant!r} "
                              "(expected '', 'int8' or 'int8-fp-head')")

@@ -68,7 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mtn_tpu_torch.config import ModelConfig, TrainConfig
+from mtn_tpu_torch.config import ModelConfig, TrainConfig, require_mtn
 from mtn_tpu_torch.data.vocab import BLANK, SPECIALS
 from mtn_tpu_torch.models.mtn import MTN
 from mtn_tpu_torch.parallel.collectives import Draws, all_reduce, drawing
@@ -179,6 +179,7 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device, pad: int = SPECIALS[BLANK],
                  nan_checks: bool = False, shardings=None):
+        require_mtn(model_cfg, "training (Trainer)")
         self.device = torch.device(device)
         self.nan_checks = nan_checks
         self.model_cfg = model_cfg

@@ -422,10 +422,10 @@ def span(name: str, batch: Optional[int] = None, parent=None):
 def device_span(name: str, device):
     """A device span ``name`` over the work the block enqueues on the
     current stream of ``device``, which the stream runs back to back
-    (the shared null context while the recorder is off, and on a device
-    other than CUDA)."""
+    (the shared null context while the recorder is off, on a device
+    other than CUDA, and inside a capture)."""
     rec = _ACTIVE
-    if rec is None or device.type != "cuda":
+    if rec is None or device.type != "cuda" or _capturing():
         return NULL
     return rec._device_span(name, False)
 
@@ -433,9 +433,17 @@ def device_span(name: str, device):
 def driven_span(name: str, device):
     """A device span ``name`` over work the host drives kernel by kernel,
     keeping the kernels the profiler sees over the block (the shared null
-    context while the recorder is off, and on a device other than
-    CUDA)."""
+    context while the recorder is off, on a device other than CUDA, and
+    inside a capture)."""
     rec = _ACTIVE
-    if rec is None or device.type != "cuda":
+    if rec is None or device.type != "cuda" or _capturing():
         return NULL
     return rec._device_span(name, True)
+
+
+def _capturing() -> bool:
+    """Whether the current stream is being captured into a CUDA graph: a
+    device span there would record its events into the graph, so it
+    records nothing (the graph's launch is the span)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mtn_tpu_torch.config import require_mtn
+
 # Modules whose ``kernel`` is read by ParamLinear. "proj" is both the
 # generator head(s) and the video feature projections (vid_encoder_*),
 # which are left out unless asked for: they run once per turn, not per
@@ -107,6 +109,7 @@ def quantize_model(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
     in place, on the layers' device; returns ``model``. ``state_dict`` is
     the checkpoint's f32 weights, which JAX quantizes (not the model's
     copy in its compute dtype)."""
+    require_mtn(model.cfg, "int8 weights (quantize_model)")
     qsd = quantize_params(state_dict, skip_generator=skip_generator)
     mods = dict(model.named_modules())
     with torch.no_grad():

@@ -32,7 +32,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mtn_tpu_torch.config import ModelConfig, dump_config, load_config
+from mtn_tpu_torch.config import (ARCHITECTURES, ModelConfig, architecture,
+                                  dump_config, load_config)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -113,18 +114,34 @@ def opt_state_to_optax(opt_state: Mapping[str, Any]
             np.asarray(opt_state["count"], np.int32))
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter of ``MTN(cfg)`` and its shape (no allocation)."""
+def model_class(cfg: ModelConfig):
+    """The module class of ``cfg``'s architecture."""
+    if architecture(cfg) == "kimi_vl":
+        from mtn_tpu_torch.models.kimi_lm import KimiVLLM
+        return KimiVLLM
+    if architecture(cfg) != "mtn":
+        raise ValueError(f"architecture {architecture(cfg)!r}: expected one "
+                         f"of {ARCHITECTURES}")
     from mtn_tpu_torch.models.mtn import MTN
+    return MTN
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter of the model of ``cfg`` and its shape (no
+    allocation)."""
     with torch.device("meta"):
-        model = MTN(cfg)
+        model = model_class(cfg)(cfg)
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
 def init_params(cfg: ModelConfig,
                 generator: Optional[torch.Generator] = None) -> StateDict:
     """Fresh f32 parameters by flax's laws (not its draws): xavier-uniform
-    kernels and embeddings, zero biases, unit norm scales."""
+    kernels and embeddings, zero biases, unit norm scales; for
+    ``kimi_vl``, DeepSeek-V3's (``models.kimi_lm.init_params``)."""
+    if architecture(cfg) == "kimi_vl":
+        from mtn_tpu_torch.models.kimi_lm import init_params as lm_init
+        return lm_init(cfg, generator)
     sd: StateDict = {}
     for key, shape in param_shapes(cfg).items():
         leaf = key.rsplit(".", 1)[-1]
@@ -144,12 +161,28 @@ def init_params(cfg: ModelConfig,
 
 def load_model(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
                device: Union[str, torch.device]):
-    """``MTN(cfg)`` on ``device`` with ``state_dict`` loaded (linear and
-    embedding weights cast to the compute dtype once), in eval mode."""
-    from mtn_tpu_torch.models.mtn import MTN
-    model = MTN(cfg)
-    model.load_state_dict(state_dict, strict=True)
-    return model.to(device).eval()
+    """The model of ``cfg`` on ``device`` with ``state_dict`` loaded
+    (linear and embedding weights cast to the compute dtype once), in
+    eval mode. A ``kimi_vl`` model is built on the meta device and takes
+    the given tensors in place (``assign``): each cast to the parameter's
+    dtype and moved to ``device``, a no-op for weights made there in that
+    dtype, so 32 GB of weights exist once on the card."""
+    cls = model_class(cfg)
+    if architecture(cfg) != "kimi_vl":
+        model = cls(cfg)
+        model.load_state_dict(state_dict, strict=True)
+        return model.to(device).eval()
+    with torch.device("meta"):
+        model = cls(cfg)
+    want = {k: v.dtype for k, v in model.state_dict().items()}
+    missing = want.keys() ^ state_dict.keys()
+    if missing:
+        raise KeyError(f"parameters missing or unexpected: "
+                       f"{sorted(missing)[:8]}")
+    model.load_state_dict({k: v.to(device, want[k])
+                           for k, v in state_dict.items()}, assign=True)
+    model.make_buffers(torch.device(device))
+    return model.eval()
 
 
 # -- checkpoints ------------------------------------------------------------

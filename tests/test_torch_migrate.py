@@ -157,7 +157,11 @@ def test_tree_and_config_equal_jax_params_from_reference(kw):
     for k in want:
         assert got[k].dtype == want[k].dtype and \
             np.array_equal(got[k], want[k]), k
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    # the JAX package's fields alike; the port's own (the architecture)
+    # at their defaults
+    port, jax_cfg = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+    assert {k: port.pop(k) for k in jax_cfg} == jax_cfg
+    assert port == {"architecture": "mtn", "lm": {}}
     # every parameter of the port's model, and nothing else
     from mtn_tpu_torch.weights import param_shapes
     shapes = param_shapes(cfg)
